@@ -1,0 +1,1 @@
+"""Pipeline stages and the wrappers of the hand-written CUDA kernels."""
