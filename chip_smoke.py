@@ -19,6 +19,20 @@ Phases, each printed as one JSON line:
            through SurfelMapper.process_frame at bench.py's operating point,
            frames/s per window, kernel launch counts, map checks
   holds    the kernels vs their plain versions on the main path's own state
+  outres   the probe kernels P1 (pallas_zbuf) and P2 (outres) vs their plain
+           version at the TPU probes' shapes (P = 453,620 and 1,814,480,
+           A = 1,048,576 in random order, a min-id tie planted): exact; K1
+           timed at the renderer's 4-class shape
+  render   the render path at KITTI resolution: 20 random novel views of the
+           main phase's ~4.4 M-surfel map through render_view(method="fast"),
+           views/s, per-view cull sizes, budget retries, coverage, memory
+  render_holds  on one of those views: K1 vs its plain version on the view's
+           own candidates (exact), fast vs exact renderer, and a render at a
+           mapping pose vs that input frame
+  probes   the probe entry points (tools.probe_pallas_zbuf,
+           tools.probe_zbuf_variants), which run P1 and P2
+Each path (main, render, probes) is driven with every launch count set to 0
+just before it and read just after.
 Then the card's ``nvidia-smi`` line, one JSON line of per-kernel numbers, and
 the final ``{"ok": true, ...}`` line.  Any failure raises (exit code != 0)
 and nothing more is printed.  Without a CUDA card it exits with code 1.
@@ -26,45 +40,27 @@ and nothing more is printed.  Without a CUDA card it exits with code 1.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
-import subprocess
+import statistics
 import sys
 import time
 
 import numpy as np
 import torch
 
+# the port itself: in a directory without it this import fails
+from surfelmapping_tpu_torch.tools.timing import HBM_BYTES_PER_S, cuda_ms
+from surfelmapping_tpu_torch.tools.timing import card_line as smi_line
+
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 INT32_MAX = 2**31 - 1
 
 
 def emit(phase: str, **kv) -> None:
     print(json.dumps({"phase": phase, **kv}), flush=True)
-
-
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean time of ``fn`` on the card by CUDA events over ``iters`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout
-    return out.strip().splitlines()[0]
 
 
 def phase_k1(dev, zbuf_mod) -> dict:
@@ -212,6 +208,15 @@ def map_checks(smap, scene) -> dict:
     return r
 
 
+def reset_counts(counters) -> None:
+    for c in counters:
+        c.launches = 0
+
+
+def read_counts(counters) -> dict:
+    return {c.name: c.launches for c in counters}
+
+
 def phase_main(dev, cam, params, kernels, smi: str) -> tuple:
     """bench.py's operating point on the port's entry points."""
     from surfelmapping_tpu_torch.config import MapConfig
@@ -230,8 +235,7 @@ def phase_main(dev, cam, params, kernels, smi: str) -> tuple:
     stage_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels:
-        k.launches = 0
+    reset_counts(kernels)
     windows, t_start = [], None
     t_run = time.perf_counter()
     for i, frame in enumerate(frames):
@@ -246,7 +250,7 @@ def phase_main(dev, cam, params, kernels, smi: str) -> tuple:
             windows.append(dict(frames=f"{lo}-{i + 1}", fps=20 / dt, surfels=surfels,
                                 card=smi))
     run_s = time.perf_counter() - t_run
-    launches = {k.name: k.launches for k in kernels}
+    launches = read_counts(kernels)
     emit("main", resolution=f"{cam.width}x{cam.height}", frames=100,
          staging_s=stage_s, run_s=run_s, windows=windows, live_count=mapper.count,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
@@ -254,7 +258,7 @@ def phase_main(dev, cam, params, kernels, smi: str) -> tuple:
     if launches["preprocess_stencil"] < 100 or launches["zbuffer_argmin"] < 99:
         raise AssertionError(f"main: kernels not on the path: {launches}")
     emit("main_map", **map_checks(mapper.smap, scene))
-    return mapper, frames, launches
+    return mapper, scene, frames, launches
 
 
 def phase_holds(dev, mapper, frames, zbuf_mod) -> None:
@@ -287,15 +291,204 @@ def phase_holds(dev, mapper, frames, zbuf_mod) -> None:
          k1_plain_ms=k1_plain_ms, k2_max_abs_err=err)
 
 
+def phase_outres(dev, zbuf_mod, outres_mod) -> dict:
+    """P1 and P2 against their plain version at the TPU probes' shapes,
+    exact, with a min-id tie planted; K1 timed at the renderer's shape."""
+    from surfelmapping_tpu_torch.tools.timing import bound_ms, packed_scatter_min
+
+    A = 1 << 20
+    rng = np.random.default_rng(SEED)
+    res = {}
+    for name, P in (("outres", 453_620), ("outres", 4 * 453_620), ("pallas_zbuf", 453_632),
+                    ("zbuffer_argmin", 4 * 453_620)):
+        zkey = rng.integers(100, 1 << 30, A).astype(np.int32)
+        fpix = rng.integers(0, P, A).astype(np.int32)
+        fpix[fpix == 4242] = 4243
+        zkey[[5, 17, 123_456]] = 77
+        fpix[[5, 17, 123_456]] = 4242
+        zk = torch.from_numpy(zkey).to(dev)
+        fp = torch.from_numpy(fpix).to(dev)
+        if name == "zbuffer_argmin":  # K1 at the renderer's 4-class shape
+            n_pix, every = P, torch.ones(A, dtype=torch.bool, device=dev)
+            zb, ib = zbuf_mod.zbuffer_argmin(zk, fp, P, every)
+            zr, ir = zbuf_mod.zbuffer_argmin_plain(zk, fp, P, every)
+            kernel = lambda: zbuf_mod.zbuffer_argmin(zk, fp, P, every)  # noqa: E731
+            plain = lambda: zbuf_mod.zbuffer_argmin_plain(zk, fp, P, every)  # noqa: E731
+        else:
+            if name == "outres":
+                n_pix, entry = outres_mod.outres_pixels(P), outres_mod.P2
+                zb, ib = outres_mod.outres(zk, fp, P)
+            else:
+                n_pix, entry = P, outres_mod.P1
+                zb, ib = (t.reshape(-1) for t in outres_mod.pallas_zbuf(zk, fp, P))
+            ref = outres_mod.zbuffer_outres_plain(zk, fp, n_pix)
+            zr, ir = ref[:zb.shape[0], 1], ref[:zb.shape[0], 0]
+            kernel = lambda: outres_mod.zbuffer_outres(zk, fp, n_pix, entry)  # noqa: E731
+            plain = lambda: outres_mod.zbuffer_outres_plain(zk, fp, n_pix)  # noqa: E731
+        torch.cuda.synchronize()
+        if not (torch.equal(zb, zr) and torch.equal(ib, ir)):
+            raise AssertionError(f"outres: {name} P={P}: kernel != plain on "
+                                 f"{int((zb != zr).sum())} keys, {int((ib != ir).sum())} ids")
+        if (int(zb[4242]), int(ib[4242])) != (77, 5):
+            raise AssertionError(f"outres: {name} P={P}: tie pixel gave "
+                                 f"({int(zb[4242])}, {int(ib[4242])})")
+        library, (lz, li) = packed_scatter_min(zk, fp, P)
+        if not (torch.equal(lz, zr[:P]) and torch.equal(li, ir[:P])):
+            raise AssertionError(f"outres: {name} P={P}: library yardstick disagrees")
+        max_err = max(int((zb.long() - zr.long()).abs().max()),
+                      int((ib.long() - ir.long()).abs().max()))
+        r = dict(P=P, A=A, buffer_pixels=n_pix, exact=True, max_abs_err=max_err,
+                 empty_pixels=int((ib == INT32_MAX).sum()),
+                 ms=cuda_ms(kernel, 50), plain_ms=cuda_ms(plain, 20),
+                 library_ms=cuda_ms(library, 20), bound_ms=bound_ms(A, n_pix))
+        res[f"{name}_{P}"] = r
+    emit("outres", **res)
+    return res
+
+
+def phase_render(dev, mapper, scene, counters, smi: str) -> tuple:
+    """The render path: 20 random novel views (seed 0) of the main phase's
+    map at KITTI resolution through render_view(method="fast"), the cull
+    budget fed forward from view to view as views.acquire_images does."""
+    from surfelmapping_tpu_torch.ops.splat import render_view
+    from surfelmapping_tpu_torch.views import random_novel_views
+
+    cam = mapper.cam
+    smap = mapper.smap  # compacted (one sync)
+    views = random_novel_views([scene.pose(i) for i in range(100)], 20, seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    hint, per_view = None, []
+    for v in views:
+        t0 = time.perf_counter()
+        out = render_view(smap, v, cam, start_blocks=hint)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n_act = int(out["n_active_blocks"])
+        hint = n_act + 1
+        per_view.append(dict(ms=ms, n_active_blocks=n_act, candidates=n_act * 2048,
+                             budget_retries=out["budget_retries"],
+                             large_overflow=int(out["large_overflow"]),
+                             **render_checks(out, smap.capacity, cam)))
+    launches = read_counts(counters)
+    median_ms = statistics.median(p["ms"] for p in per_view[2:])  # after 2 warm-up views
+    r = dict(resolution=f"{cam.width}x{cam.height}", views=len(views), map_surfels=mapper.count,
+             map_capacity=smap.capacity, views_per_s=1e3 / median_ms, median_view_ms=median_ms,
+             max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
+             per_view=per_view, card=smi)
+    emit("render", **r)
+    if launches["zbuffer_argmin"] < len(views):
+        raise AssertionError(f"render: K1 launched {launches['zbuffer_argmin']} times "
+                             f"for {len(views)} views")
+    return views, per_view, launches
+
+
+def render_checks(out: dict, capacity: int, cam) -> dict:
+    """A rendered view is well formed: image shapes, holes where the id is
+    -1, finite depth in (1, 200) m on hits, classes of the scene, map ids."""
+    H, W = cam.height, cam.width
+    rgb, sem, depth, ids = (out[k] for k in ("rgb", "semantic", "depth", "id"))
+    hit = ids >= 0
+    ok = (tuple(rgb.shape) == (H, W, 3) and tuple(sem.shape) == (H, W)
+          and bool(torch.equal(hit, sem > 0))
+          and bool(torch.isfinite(depth).all() and torch.isfinite(rgb).all())
+          and bool(((depth > 1.0) & (depth < 200.0))[hit].all())
+          and bool((depth[~hit] == 0).all())
+          and set(torch.unique(sem).tolist()) <= {0, 1, 3, 11, 14}
+          and bool((ids < capacity).all()))
+    coverage = float(hit.float().mean())
+    if not ok or coverage < 0.05:
+        raise AssertionError(f"render: malformed view (coverage {coverage})")
+    return dict(coverage=coverage)
+
+
+def phase_render_holds(dev, mapper, scene, view, n_active: int, zbuf_mod) -> None:
+    """On one rendered view: K1 vs its plain version on the view's own
+    candidates, the fast renderer vs the exact one, and a render at a
+    mapping pose vs that input frame."""
+    from surfelmapping_tpu_torch.metrics import psnr, render_vs_frame_psnr
+    from surfelmapping_tpu_torch.ops.splat import cull_for_render, fast_candidates, render_view
+
+    cam = mapper.cam
+    smap = mapper.smap
+    G = smap.capacity // 2048
+    budget = 1
+    while budget < n_active:  # render_view's budget for this view
+        budget *= 2
+    budget = G if budget >= G // 2 else budget
+    vt = torch.as_tensor(view, device=dev)
+    culled, _, n_act = cull_for_render(smap, vt, cam, budget, 2048, margin=7)
+    key, cflat, classes, _ = fast_candidates(culled, vt, cam)
+    slot_valid = torch.arange(culled.capacity, device=dev) < int(n_act) * 2048
+    P = len(classes) * cam.height * cam.width
+    zb, ib = zbuf_mod.zbuffer_argmin(key, cflat, P, slot_valid)
+    zr, ir = zbuf_mod.zbuffer_argmin_plain(key, cflat, P, slot_valid)
+    if not (torch.equal(zb, zr) and torch.equal(ib, ir)):
+        raise AssertionError("render_holds: k1 differs on the view's candidates")
+    k1_ms = cuda_ms(lambda: zbuf_mod.zbuffer_argmin(key, cflat, P, slot_valid), 50)
+    k1_plain_ms = cuda_ms(lambda: zbuf_mod.zbuffer_argmin_plain(key, cflat, P, slot_valid), 20)
+
+    fast = render_view(smap, view, cam, start_blocks=n_active + 1, method="fast")
+    exact = render_view(smap, view, cam, start_blocks=n_active + 1, method="exact")
+    hf = (fast["semantic"] > 0).cpu().numpy()
+    he = (exact["semantic"] > 0).cpu().numpy()
+    both = he & hf
+    p_fast = psnr(fast["rgb"].cpu().numpy(), exact["rgb"].cpu().numpy(), both)
+    z_exact = exact["depth"].cpu().numpy()
+    derr = np.abs(fast["depth"].cpu().numpy() - z_exact)
+    # tests/test_render.py's 0.05 m depth limit was set on a camera of focal
+    # length 100 px whose map holds surfels nearer than 6 m.  A splat spans
+    # ~1.4 px wherever it was made, and its ray/plane depth changes by
+    # z^2 / (f * camera height) per pixel on the ground, so the limit carries
+    # over to the mutual hits nearer than 6 m * sqrt(f / 100) (16 m at KITTI)
+    near = both & (z_exact < 6.0 * np.sqrt(cam.fx / 100.0))
+    r = dict(k1_table_slots=culled.capacity, k1_n_valid=int(n_act) * 2048,
+             k1_pixels_hit=int((ib != INT32_MAX).sum()), k1_exact=True, k1_ms=k1_ms,
+             k1_plain_ms=k1_plain_ms, coverage_fast=float(hf.mean()),
+             coverage_exact=float(he.mean()), exact_hits_also_fast=float(both.sum() / he.sum()),
+             fast_vs_exact_psnr=p_fast, median_depth_diff=float(np.median(derr[both])),
+             median_rel_depth_diff=float(np.median(derr[both] / z_exact[both])),
+             near_hits=int(near.sum()), median_depth_diff_near=float(np.median(derr[near])))
+    if not (abs(r["coverage_fast"] - r["coverage_exact"]) < 0.05
+            and r["exact_hits_also_fast"] >= 0.9 and p_fast > 25.0
+            and r["near_hits"] > 1000 and r["median_depth_diff_near"] < 0.05):
+        raise AssertionError(f"render_holds: fast vs exact out of limits {r}")
+
+    rgb, _, _, pose = scene.frame(99)
+    p_frame, hit_frac = render_vs_frame_psnr(mapper, rgb, pose)
+    r.update(paired_frame=99, paired_psnr=p_frame, paired_hit_fraction=hit_frac)
+    emit("render_holds", **r)
+    if not p_frame > 20.0:
+        raise AssertionError(f"render_holds: render at the mapping pose has PSNR {p_frame}")
+
+
+def phase_probes(counters) -> dict:
+    """The probe entry points, which run P1 and P2 (and K1 beside them)."""
+    from surfelmapping_tpu_torch.tools import probe_pallas_zbuf, probe_zbuf_variants
+
+    reset_counts(counters)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        probe_pallas_zbuf.main(["--iters", "10"])
+        probe_zbuf_variants.main(["--iters", "10"])
+    launches = read_counts(counters)
+    emit("probes", launches=launches,
+         lines=[json.loads(line) for line in buf.getvalue().splitlines()])
+    if launches["pallas_zbuf"] < 1 or launches["outres"] < 1:
+        raise AssertionError(f"probes: P1/P2 not launched: {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    # the port itself; in a directory without it this import fails
     from surfelmapping_tpu_torch.config import PipelineParams
     from surfelmapping_tpu_torch.io.synthetic import kitti_cam
     from surfelmapping_tpu_torch.ops import preprocess_stencil as k2_mod
     from surfelmapping_tpu_torch.ops import zbuf as zbuf_mod
+    from surfelmapping_tpu_torch.ops import zbuf_outres as outres_mod
     from surfelmapping_tpu_torch.ops.cuda_lib import build_all
     from surfelmapping_tpu_torch.ops.transforms import full_precision_matmul
 
@@ -306,7 +499,8 @@ def main() -> int:
     emit("device", kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
-    kernels = [zbuf_mod.KERNEL, k2_mod.KERNEL]
+    kernels = [zbuf_mod.KERNEL, k2_mod.KERNEL, outres_mod.KERNEL]
+    counters = kernels + [outres_mod.P1, outres_mod.P2]
     t0 = time.perf_counter()
     build_all(kernels)
     build_s = time.perf_counter() - t0
@@ -318,21 +512,36 @@ def main() -> int:
     cam, params = kitti_cam(), PipelineParams()
     k1 = phase_k1(dev, zbuf_mod)
     k2 = phase_k2(dev, cam, params)
+    probe = phase_outres(dev, zbuf_mod, outres_mod)
     phase_small(dev)
-    mapper, frames, launches = phase_main(dev, cam, params, kernels, smi)
+    mapper, scene, frames, fusion = phase_main(dev, cam, params, counters, smi)
     phase_holds(dev, mapper, frames, zbuf_mod)
+    views, per_view, render = phase_render(dev, mapper, scene, counters, smi)
+    phase_render_holds(dev, mapper, scene, views[0], per_view[0]["n_active_blocks"], zbuf_mod)
+    probes = phase_probes(counters)
+    emit("paths", launches=dict(main=fusion, render=render, probes=probes))
+    p1, p2 = probe["pallas_zbuf_453632"], probe["outres_1814480"]
 
     table = [
         dict(name="zbuffer_argmin", route="cuda", source=zbuf_mod.KERNEL.repo_source,
              replaces="surfelmapping_tpu/ops/pallas_zbuf.py:188",
-             launches=launches["zbuffer_argmin"], max_abs_err=k1["max_abs_err"],
+             launches=fusion["zbuffer_argmin"] + render["zbuffer_argmin"],
+             max_abs_err=k1["max_abs_err"],
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by="bytes", library_ms=k1["library_ms"]),
         dict(name="preprocess_stencil", route="cuda", source=k2_mod.KERNEL.repo_source,
              replaces="surfelmapping_tpu/ops/pallas_preprocess.py:188",
-             launches=launches["preprocess_stencil"], max_abs_err=k2["max_abs_err"],
+             launches=fusion["preprocess_stencil"], max_abs_err=k2["max_abs_err"],
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None),
+        dict(name="pallas_zbuf", route="cuda", source=outres_mod.KERNEL.repo_source,
+             replaces="tools/probe_pallas_zbuf.py:94", launches=probes["pallas_zbuf"],
+             max_abs_err=p1["max_abs_err"], ms=p1["ms"], plain_ms=p1["plain_ms"],
+             bound_ms=p1["bound_ms"], bound_by="bytes", library_ms=p1["library_ms"]),
+        dict(name="outres", route="cuda", source=outres_mod.KERNEL.repo_source,
+             replaces="tools/probe_zbuf_variants.py:66", launches=probes["outres"],
+             max_abs_err=p2["max_abs_err"], ms=p2["ms"], plain_ms=p2["plain_ms"],
+             bound_ms=p2["bound_ms"], bound_by="bytes", library_ms=p2["library_ms"]),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

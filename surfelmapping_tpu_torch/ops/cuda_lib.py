@@ -104,6 +104,15 @@ class CudaKernel:
             raise RuntimeError(f"{self.name}: CUDA error {rc} ({msg})")
 
 
+class LaunchCount:
+    """The launch count of one entry point, where one kernel source serves
+    several; the wrapper increments ``launches`` beside the kernel's own."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+
 def build_all(kernels: list[CudaKernel]) -> None:
     """Build every kernel that is not built yet: one ``nvcc`` per source,
     all started together, then waited for."""

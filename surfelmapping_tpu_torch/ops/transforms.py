@@ -38,9 +38,19 @@ def rotate_planar(T: torch.Tensor, x, y, z):
     )
 
 
+def ieee_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root on every device.  The card's
+    ``sqrtf`` rounds correctly, as XLA's does; PyTorch's vectorised float32
+    sqrt on the CPU does not (one ulp off on some inputs), so on the CPU it
+    is taken in float64, whose rounding back to float32 is exact."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+    return torch.sqrt(x)
+
+
 def normalize_planar(x, y, z):
     """Unit-normalize planar vector columns (safe at zero length)."""
-    n = torch.clamp(torch.sqrt(x * x + y * y + z * z), min=1e-12)
+    n = torch.clamp(ieee_sqrt(x * x + y * y + z * z), min=1e-12)
     return x / n, y / n, z / n
 
 

@@ -28,6 +28,8 @@ from typing import BinaryIO
 import numpy as np
 import torch
 
+from .ops.colors import decode_color
+
 # map columns in record-independent order; colorsem is int32, the rest f32
 COLUMNS = ("px", "py", "pz", "conf", "colorsem", "init_t", "last_t",
            "nx", "ny", "nz", "radius")
@@ -81,6 +83,27 @@ class SurfelMap:
         checkpoint: the fusion step updates the columns in place)."""
         return SurfelMap(**{f.name: getattr(self, f.name).clone()
                             for f in dataclasses.fields(self)})
+
+    def to(self, device: torch.device | str) -> "SurfelMap":
+        """The map on ``device`` (itself if it is already there)."""
+        if self.device == torch.device(device):
+            return self
+        return SurfelMap(**{f.name: getattr(self, f.name).to(device)
+                            for f in dataclasses.fields(self)})
+
+    # -- stacked [capacity, 3] views (cold paths: viewer, tests) ------------
+
+    def pos(self) -> torch.Tensor:
+        return torch.stack([self.column(k) for k in ("px", "py", "pz")], dim=-1)
+
+    def normal(self) -> torch.Tensor:
+        return torch.stack([self.column(k) for k in ("nx", "ny", "nz")], dim=-1)
+
+    def rgb(self) -> torch.Tensor:
+        return decode_color(self.column("colorsem"))[0]
+
+    def sem(self) -> torch.Tensor:
+        return decode_color(self.column("colorsem"))[1]
 
 
 def empty_map(capacity: int, device: torch.device | str) -> SurfelMap:

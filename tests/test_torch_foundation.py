@@ -178,13 +178,29 @@ def test_port_imports_no_jax():
     assert out[1] == "[]"
 
 
+@pytest.mark.parametrize("entry", ["SurfelMapper", "render_view", "load_map"])
 @pytest.mark.parametrize("device", [None, "cuda"])
-def test_entry_point_defaults_to_the_card(device):
+def test_entry_point_defaults_to_the_card(device, entry, tmp_path):
+    """The mapper, the renderer and the load-map CLI run on the card unless
+    asked for the CPU; without CUDA they raise rather than fall back."""
+    from surfelmapping_tpu_torch import load_map
     from surfelmapping_tpu_torch.io.synthetic import tiny_cam
+    from surfelmapping_tpu_torch.ops.splat import render_view
     from surfelmapping_tpu_torch.pipeline import SurfelMapper
 
+    path = str(tmp_path / "empty.bin")
+    surfels.save_map(surfels.empty_map(8, "cpu"), path, 0, 1)
+    calls = {
+        "SurfelMapper": lambda: SurfelMapper(tiny_cam(), device=device).device,
+        "render_view": lambda: render_view(surfels.empty_map(8, "cpu"), np.eye(4), tiny_cam(),
+                                           device=device)["id"].device,
+        "load_map": lambda: load_map.main(
+            [path, "--synthetic-cam", "small", "--num", "1", "--out", str(tmp_path / "novel")]
+            + ([] if device is None else ["--device", device])),
+    }
     if torch.cuda.is_available():
-        assert SurfelMapper(tiny_cam(), device=device).device.type == "cuda"
+        got = calls[entry]()
+        assert got == 0 if entry == "load_map" else got.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            SurfelMapper(tiny_cam(), device=device)
+            calls[entry]()

@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels on the card, against their plain
-PyTorch versions, and the main path on the card against the CPU.
+PyTorch versions, and the main path and the renderer on the card against
+the CPU.
 
 Every test here needs a CUDA card: it carries the ``gpu`` marker and skips
 without one.  The file imports neither JAX nor the JAX package, so it also
@@ -16,8 +17,10 @@ from surfelmapping_tpu_torch.config import CameraIntrinsics, MapConfig, Pipeline
 from surfelmapping_tpu_torch.io.synthetic import SyntheticScene, kitti_cam, tiny_cam
 from surfelmapping_tpu_torch.ops import preprocess_stencil as k2
 from surfelmapping_tpu_torch.ops import zbuf as k1
+from surfelmapping_tpu_torch.ops import zbuf_outres as outres
 from surfelmapping_tpu_torch.ops.index_map import INT32_MAX
 from surfelmapping_tpu_torch.ops.preprocess import metricize_depth, stencil_chain_plain
+from surfelmapping_tpu_torch.ops.splat import render_view
 from surfelmapping_tpu_torch.pipeline import SurfelMapper
 
 pytestmark = pytest.mark.gpu
@@ -120,3 +123,68 @@ def test_main_path_on_the_card_matches_the_cpu(cuda):
     assert k1.KERNEL.launches - n1 == 4
     assert k2.KERNEL.launches - n2 == 5
     assert card.count == cpu.count > 0
+
+
+def _outres_case(P, seed=0):
+    """2^20 candidates over [0, P): signed keys, INT32_MAX keys, a planted
+    min-id tie on pixel 13, and (at P = 453,620 and above) empty pixels."""
+    rng = np.random.default_rng(seed)
+    A = 1 << 20
+    zkey = rng.integers(-(1 << 30), 1 << 30, A).astype(np.int32)
+    fpix = rng.integers(0, P, A).astype(np.int32)
+    zkey[rng.uniform(size=A) < 0.2] = INT32_MAX
+    fpix[fpix == 13] = 14
+    fpix[[7, 8, 900]] = 13
+    zkey[[7, 8, 900]] = -(1 << 30) - 5
+    return zkey, fpix
+
+
+@pytest.mark.parametrize("P", [5000, 453_620, 4 * 453_620])
+def test_outres_kernel_matches_plain(P, cuda):
+    zkey, fpix = _outres_case(P)
+    zk, fp = torch.from_numpy(zkey).to(cuda), torch.from_numpy(fpix).to(cuda)
+    before = (outres.KERNEL.launches, outres.P2.launches, outres.P1.launches)
+    zb, ib = outres.outres(zk, fp, P)
+    ref = outres.zbuffer_outres_plain(zk, fp, outres.outres_pixels(P))
+    assert torch.equal(zb, ref[:P, 1]) and torch.equal(ib, ref[:P, 0])
+    assert (int(zb[13]), int(ib[13])) == (-(1 << 30) - 5, 7)
+    assert (int((ib == INT32_MAX).sum()) > 0) == (P > 5000)   # empty pixels
+    P_pad = -(-P // 128) * 128
+    zb1, ib1 = outres.pallas_zbuf(zk, fp, P_pad)
+    ref1 = outres.zbuffer_outres_plain(zk, fp, P_pad)
+    assert torch.equal(zb1.reshape(-1), ref1[:, 1]) and torch.equal(ib1.reshape(-1), ref1[:, 0])
+    assert (outres.KERNEL.launches, outres.P2.launches, outres.P1.launches) == (
+        before[0] + 2, before[1] + 1, before[2] + 1)
+
+
+def test_outres_wrapper_rejects_bad_inputs(cuda):
+    zk = torch.zeros(2048, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        outres.zbuffer_outres(zk, zk.cpu(), 4096, outres.P2)
+    with pytest.raises(ValueError, match="int32"):
+        outres.zbuffer_outres(zk.long(), zk, 4096, outres.P2)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        outres.outres(zk[:-1], zk[:-1], 4000)
+    with pytest.raises(ValueError, match="outside the buffer"):
+        outres.pallas_zbuf(zk, zk - 1, 4096)
+
+
+def test_render_view_on_the_card_matches_the_cpu(cuda):
+    """The renderer on the card (K1 for the fast method) equals its run on
+    the CPU, at a mapping pose of a small map, for both methods."""
+    cam, params = tiny_cam(), PipelineParams(fuse_thresh_factor=0.05)
+    mapper = SurfelMapper(cam, params, MapConfig(capacity=1 << 16), device="cpu")
+    scene = SyntheticScene(cam)
+    for i in range(4):
+        mapper.process_frame(*scene.frame(i))
+    smap, pose = mapper.smap, scene.pose(2)
+    for method in ("fast", "exact"):
+        n = k1.KERNEL.launches
+        got = render_view(smap, pose, cam, block_size=256, start_blocks=4, method=method,
+                          device=cuda)
+        assert k1.KERNEL.launches - n == (method == "fast")
+        want = render_view(smap, pose, cam, block_size=256, start_blocks=4, method=method,
+                           device="cpu")
+        for key in ("rgb", "semantic", "depth", "id", "n_active_blocks"):
+            assert torch.equal(got[key].cpu(), want[key]), (method, key)
+        assert float((want["id"] >= 0).float().mean()) > 0.03
