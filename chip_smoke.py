@@ -7,22 +7,29 @@ Run from the root of a checkout on a machine with one CUDA card:
 
 Phases, each printed as one JSON line:
   device   card name, count, ``nvidia-smi`` name and power limit
-  build    both kernels built from the sources in the checkout (one nvcc per
-           source, started together), with ptxas' register/shared/spill lines
-  k1       the z-buffer kernel vs its plain version at the index map's shapes
-           (P = 453,620 pixels, A = 1,048,576 candidates): exact
-  k2       the preprocess stencil kernel vs its plain version on 370x1226
-           frames: atol 1e-4
+  build    the kernels built from the sources in the checkout (one nvcc per
+           source, started together), with ptxas' register/shared/spill
+           lines, K2's CTAs per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+           and its SASS instructions per smooth tap (cuobjdump -sass)
+  k1       the z-buffer kernel vs its plain version, exact, at the index
+           map's shape (P = 453,620 pixels, A = 1,048,576 candidates,
+           n_valid = 700,001; also n_valid = 0 and A) and at the renderer's
+           (P = 1,814,480, all A valid); its device launches per call (the
+           profiler); warm and cold-L2 times beside the library call on the
+           candidates K1 really scatters
+  k2       the preprocess stencil kernel vs its plain version, bit for bit:
+           370x1226 KITTI frames, shapes off the tile, radii 0, 1, 3, 6,
+           stereo borders 0 and 80, one class everywhere, the class INT32_MIN
   small    the main path on a 128x96 camera, on the card vs on the CPU
-           (plain versions): identical per-frame stats, maps to 1e-5
+           (plain versions): identical per-frame stats, every map column
+           bit for bit
   main     the main path at KITTI resolution (1226x370): 100 synthetic frames
            through SurfelMapper.process_frame at bench.py's operating point,
            frames/s per window, kernel launch counts, map checks
   holds    the kernels vs their plain versions on the main path's own state
   outres   the probe kernels P1 (pallas_zbuf) and P2 (outres) vs their plain
            version at the TPU probes' shapes (P = 453,620 and 1,814,480,
-           A = 1,048,576 in random order, a min-id tie planted): exact; K1
-           timed at the renderer's 4-class shape
+           A = 1,048,576 in random order, a min-id tie planted): exact
   render   the render path at KITTI resolution: 20 random novel views of the
            main phase's ~4.4 M-surfel map through render_view(method="fast"),
            views/s, per-view cull sizes, budget retries, coverage, memory
@@ -32,7 +39,12 @@ Phases, each printed as one JSON line:
   probes   the probe entry points (tools.probe_pallas_zbuf,
            tools.probe_zbuf_variants), which run P1 and P2
 Each path (main, render, probes) is driven with every launch count set to 0
-just before it and read just after.
+just before it and read just after.  Kernel times are by CUDA events
+(tools/timing.py), warm in L2: ``ms`` and ``library_ms`` over calls issued
+back to back (the larger of the host's and the card's time per call);
+``ms_device`` and ``library_ms_device`` with the host's launches queued
+ahead (the card's time alone); ``*_device_cold`` the same with L2 flushed
+by a 64 MB write before each call.
 Then the card's ``nvidia-smi`` line, one JSON line of per-kernel numbers, and
 the final ``{"ok": true, ...}`` line.  Any failure raises (exit code != 0)
 and nothing more is printed.  Without a CUDA card it exits with code 1.
@@ -40,18 +52,22 @@ and nothing more is printed.  Without a CUDA card it exits with code 1.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
+import re
 import statistics
+import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 # the port itself: in a directory without it this import fails
-from surfelmapping_tpu_torch.tools.timing import HBM_BYTES_PER_S, cuda_ms
+from surfelmapping_tpu_torch.tools.timing import HBM_BYTES_PER_S, cuda_ms, cuda_ms_cold
 from surfelmapping_tpu_torch.tools.timing import card_line as smi_line
 
 SEED = 0
@@ -63,52 +79,116 @@ def emit(phase: str, **kv) -> None:
     print(json.dumps({"phase": phase, **kv}), flush=True)
 
 
-def phase_k1(dev, zbuf_mod) -> dict:
-    """K1 against its plain version at the index map's shapes."""
-    P, A, nv = 453_620, 1 << 20, 700_001
+def device_launches(fn) -> int:
+    """Kernels that one call of ``fn`` puts on the card (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.count for e in prof.key_averages() if e.device_type == cuda)
+
+
+def k1_case(dev, P: int, A: int, invalid: float):
+    """A candidates over P pixels in random order (seed 0); an ``invalid``
+    share with key INT32_MAX sent to pixel P, as index_candidates sends
+    them; a min-id tie planted on pixel 4242."""
     rng = np.random.default_rng(SEED)
     zkey = rng.integers(100, 1 << 30, A).astype(np.int32)
     fpix = rng.integers(0, P, A).astype(np.int32)
-    inval = rng.uniform(size=A) < 0.3
+    inval = rng.uniform(size=A) < invalid
     zkey[inval] = INT32_MAX
     fpix[inval] = P
-    # min-id tie: three candidates with one key on one pixel, nothing nearer
     fpix[fpix == 4242] = P
     zkey[[5, 17, 123_456]] = 77
     fpix[[5, 17, 123_456]] = 4242
-    zk = torch.from_numpy(zkey).to(dev)
-    fp = torch.from_numpy(fpix).to(dev)
-    # candidates past n_valid keep valid-looking keys: the kernel must not
-    # read them (the plain version masks them out)
-    slot_valid = torch.arange(A, device=dev) < nv
+    return torch.from_numpy(zkey).to(dev), torch.from_numpy(fpix).to(dev)
 
-    zb, ib = zbuf_mod.zbuffer_argmin(zk, fp, P, slot_valid)
-    zr, ir = zbuf_mod.zbuffer_argmin_plain(zk, fp, P, slot_valid)
-    torch.cuda.synchronize()
-    if not (torch.equal(zb, zr) and torch.equal(ib, ir)):
-        raise AssertionError(f"k1: kernel != plain on {int((zb != zr).sum())} keys, "
-                             f"{int((ib != ir).sum())} ids")
-    if int(zb[4242]) != 77 or int(ib[4242]) != 5:
-        raise AssertionError(f"k1: tie pixel gave ({int(zb[4242])}, {int(ib[4242])})")
-    max_err = max(int((zb.long() - zr.long()).abs().max()), int((ib.long() - ir.long()).abs().max()))
 
-    # library yardstick: one scatter_reduce_ of the packed (key << 32 | id)
-    valid = slot_valid & (zk != INT32_MAX)
-    pix = torch.where(valid, fp, P).long()
-    vals = (zk.long() << 32) | torch.arange(A, device=dev)
-    empty = torch.full((P + 1,), (INT32_MAX << 32) | INT32_MAX, dtype=torch.int64, device=dev)
-    lib = empty.scatter_reduce(0, pix, vals, "amin")[:P]
-    if not (torch.equal((lib >> 32).int(), zr) and torch.equal((lib & 0xFFFFFFFF).int(), ir)):
-        raise AssertionError("k1: library yardstick disagrees")
+def phase_k1(dev, zbuf_mod) -> dict:
+    """K1 against its plain version at the index map's and the renderer's
+    shapes, with a device n_valid; the library call gets only the
+    candidates K1 scatters, selected before it is timed."""
+    A = 1 << 20
+    res = {}
+    for shape, P, nv, invalid in (("index", 453_620, 700_001, 0.3),
+                                  ("render", 4 * 453_620, A, 0.0)):
+        zk, fp = k1_case(dev, P, A, invalid)
+        checks = (0, A, nv) if shape == "index" else (nv,)
+        for n in checks:  # n_valid = 0, A, mid: exact against the plain version
+            n_valid = torch.tensor(n, dtype=torch.int32, device=dev)
+            packed = zbuf_mod.zbuffer_argmin_packed(zk, fp, P, n_valid)
+            zb, ib = zbuf_mod.key_id_views(packed)
+            zr, ir = zbuf_mod.zbuffer_argmin_plain(zk, fp, P, n_valid)
+            torch.cuda.synchronize()
+            if not (torch.equal(zb, zr) and torch.equal(ib, ir)):
+                raise AssertionError(f"k1 {shape} n_valid={n}: kernel != plain on "
+                                     f"{int((zb != zr).sum())} keys, {int((ib != ir).sum())} ids")
+            want = (77, 5) if n > 123_456 else (INT32_MAX, INT32_MAX)
+            if (int(zb[4242]), int(ib[4242])) != want:
+                raise AssertionError(f"k1 {shape} n_valid={n}: tie pixel gave "
+                                     f"({int(zb[4242])}, {int(ib[4242])})")
+        max_err = max(int((zb.long() - zr.long()).abs().max()),
+                      int((ib.long() - ir.long()).abs().max()))
+        launches = device_launches(lambda: zbuf_mod.zbuffer_argmin_packed(zk, fp, P, n_valid))
 
-    ms = cuda_ms(lambda: zbuf_mod.zbuffer_argmin(zk, fp, P, slot_valid), 50)
-    plain_ms = cuda_ms(lambda: zbuf_mod.zbuffer_argmin_plain(zk, fp, P, slot_valid), 20)
-    library_ms = cuda_ms(lambda: empty.scatter_reduce(0, pix, vals, "amin"), 20)
-    bound_ms = (8.0 * nv + 8.0 * P) / HBM_BYTES_PER_S * 1e3
-    r = dict(P=P, A=A, n_valid=nv, exact=True, max_abs_err=max_err, ms=ms,
-             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms)
-    emit("k1", **r)
-    return r
+        # library yardstick: one scatter_reduce_ of the packed (key << 32 | id)
+        # of the candidates K1 scatters, selected here, outside the timing
+        ids = torch.arange(A, device=dev)
+        sel = (ids < nv) & (zk != INT32_MAX) & (fp >= 0) & (fp < P)
+        pix, vals = fp[sel].long(), ((zk.long() << 32) | ids)[sel]
+        empty = torch.full((P,), (INT32_MAX << 32) | INT32_MAX, dtype=torch.int64, device=dev)
+        library = lambda: empty.scatter_reduce(0, pix, vals, "amin")  # noqa: E731
+        if not torch.equal(library(), packed):
+            raise AssertionError(f"k1 {shape}: library yardstick disagrees")
+
+        kernel = lambda: zbuf_mod.zbuffer_argmin_packed(zk, fp, P, n_valid)  # noqa: E731
+        res[shape] = dict(
+            P=P, A=A, n_valid=nv, scattered=int(sel.sum()), exact=True, max_abs_err=max_err,
+            device_launches_per_call=launches, ms=cuda_ms(kernel, 50),
+            ms_device=cuda_ms(kernel, 50, hold=True), ms_device_cold=cuda_ms_cold(kernel, 20),
+            plain_ms=cuda_ms(lambda: zbuf_mod.zbuffer_argmin_plain(zk, fp, P, n_valid), 20),
+            library_ms=cuda_ms(library, 50), library_ms_device=cuda_ms(library, 50, hold=True),
+            library_ms_device_cold=cuda_ms_cold(library, 20),
+            bound_ms=(8.0 * nv + 8.0 * P) / HBM_BYTES_PER_S * 1e3)
+        if launches != 2:
+            raise AssertionError(f"k1 {shape}: {launches} device launches per call, not 2")
+    emit("k1", **res)
+    return res
+
+
+def sass_opcodes(kernel, radius: int) -> collections.Counter:
+    """Opcode counts of K2's radius-``radius`` instantiation in its built
+    library (``cuobjdump -sass``)."""
+    from surfelmapping_tpu_torch.ops.cuda_lib import nvcc_path
+
+    cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(kernel.library_path())],
+                          check=True, capture_output=True, text=True, timeout=120).stdout
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        if f"stencil_kernelILi{radius}E" in fn.split("\n", 1)[0]:
+            return collections.Counter(
+                re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", fn))
+    raise AssertionError(f"build: no radius-{radius} stencil kernel in the SASS")
+
+
+def k2_design(k2_mod, radius: int) -> dict:
+    """K2's occupancy and its SASS instructions per smooth tap: the radius-R
+    kernel's instructions less the radius-0 kernel's, over the (2R+1)^2 - 1
+    taps that R adds to each of a thread's pixels."""
+    occ = k2_mod.occupancy(radius)
+    h, w = occ["tile"]
+    pixels_per_thread = (h + 2) * (w + 2) // occ["threads_per_cta"]
+    big, small = sass_opcodes(k2_mod.KERNEL, radius), sass_opcodes(k2_mod.KERNEL, 0)
+    taps = ((2 * radius + 1) ** 2 - 1) * pixels_per_thread
+    delta = big - small
+    return dict(**occ, smooth_pixels_per_thread=pixels_per_thread,
+                sass_instructions=sum(big.values()),
+                sass_instructions_per_tap=(sum(big.values()) - sum(small.values())) / taps,
+                sass_per_tap_by_opcode={k: v / taps for k, v in delta.most_common(8)})
 
 
 def k2_ops_per_pixel(radius: int) -> int:
@@ -119,39 +199,49 @@ def k2_ops_per_pixel(radius: int) -> int:
 
 
 def phase_k2(dev, cam, params) -> dict:
-    """K2 against its plain version on KITTI-sized synthetic frames."""
-    from surfelmapping_tpu_torch.io.synthetic import SyntheticScene
+    """K2 against its plain version, bit for bit, on KITTI-sized synthetic
+    frames and on the stencil cases of io/synthetic.py."""
+    from surfelmapping_tpu_torch.config import CameraIntrinsics, PipelineParams
+    from surfelmapping_tpu_torch.io.synthetic import STENCIL_CASES, SyntheticScene, stencil_frame
     from surfelmapping_tpu_torch.ops.preprocess import metricize_depth, stencil_chain_plain
     from surfelmapping_tpu_torch.ops.preprocess_stencil import preprocess_stencil
 
     rng = np.random.default_rng(SEED)
-    cases = [(SyntheticScene(cam), 3), (SyntheticScene(cam, noise_mm=40.0), 7)]
-    worst, flips = 0.0, 0
-    for scene, idx in cases:
+    cases = []
+    for scene, idx in ((SyntheticScene(cam), 3), (SyntheticScene(cam, noise_mm=40.0), 7)):
         _, depth, sem, _ = scene.frame(idx, rng)
         metric = metricize_depth(torch.from_numpy(depth.astype(np.int32)).to(dev), cam, params)
-        semantic = torch.from_numpy(sem.astype(np.int32)).to(dev)
-        got = preprocess_stencil(metric, semantic, cam, params)
-        ref = stencil_chain_plain(metric, semantic, cam, params)
+        cases.append((f"kitti {idx}", metric, torch.from_numpy(sem.astype(np.int32)).to(dev),
+                      cam, params))
+    for H, W, border, radius, cls in STENCIL_CASES:
+        depth, sem = stencil_frame(H, W, np.random.default_rng(SEED), cls)
+        c = CameraIntrinsics(fx=100.0, fy=100.0, cx=W / 2, cy=H / 2, width=W, height=H)
+        cases.append((f"{H}x{W} border {border} R {radius} class {cls}",
+                      torch.from_numpy(depth).to(dev), torch.from_numpy(sem).to(dev), c,
+                      PipelineParams(stereo_border=border, smooth_radius=radius)))
+    max_err = 0.0
+    for name, metric, semantic, c, p in cases:
+        got = preprocess_stencil(metric, semantic, c, p)
+        ref = stencil_chain_plain(metric, semantic, c, p)
         torch.cuda.synchronize()
-        worst = max(worst, float((got - ref).abs().max()))
-        flips += int(((got == 0) != (ref == 0)).sum())
-        kept = float((ref > 0).float().mean())
-        if not 0.05 < kept < 0.999:
-            raise AssertionError(f"k2: degenerate test frame (kept {kept})")
-    if worst > 1e-4:
-        raise AssertionError(f"k2: max |kernel - plain| = {worst} > 1e-4 "
-                             f"({flips} zero/non-zero flips)")
+        max_err = max(max_err, float((got - ref).abs().max()))
+        if not torch.equal(got, ref):
+            raise AssertionError(f"k2 {name}: kernel != plain on {int((got != ref).sum())} "
+                                 f"pixels, max {float((got - ref).abs().max())}")
+        if not 0.05 < float((ref > 0).float().mean()) < 0.999:
+            raise AssertionError(f"k2: degenerate test frame {name}")
+    _, metric, semantic, _, _ = cases[1]
     P = cam.height * cam.width
-    ms = cuda_ms(lambda: preprocess_stencil(metric, semantic, cam, params), 50)
-    plain_ms = cuda_ms(lambda: stencil_chain_plain(metric, semantic, cam, params), 5, 1)
+    kernel = lambda: preprocess_stencil(metric, semantic, cam, params)  # noqa: E731
     ops = P * k2_ops_per_pixel(params.smooth_radius)
     bytes_ = 12.0 * P
     bound_ms = max(bytes_ / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
     bound_by = "operations" if ops / F32_OPS_PER_S > bytes_ / HBM_BYTES_PER_S else "bytes"
-    r = dict(H=cam.height, W=cam.width, max_abs_err=worst, zero_nonzero_flips=flips,
-             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-             f32_ops=ops)
+    r = dict(H=cam.height, W=cam.width, cases=len(cases), bit_equal=True, max_abs_err=max_err,
+             ms=cuda_ms(kernel, 100), ms_device=cuda_ms(kernel, 100, hold=True),
+             ms_device_cold=cuda_ms_cold(kernel, 20),
+             plain_ms=cuda_ms(lambda: stencil_chain_plain(metric, semantic, cam, params), 5, 1),
+             bound_ms=bound_ms, bound_by=bound_by, f32_ops=ops)
     emit("k2", **r)
     return r
 
@@ -175,16 +265,29 @@ def phase_small(dev) -> None:
     n = mappers[0].count
     if n != mappers[1].count or n == 0:
         raise AssertionError(f"small: counts {n} vs {mappers[1].count}")
+    # every column bit for bit: the fusion path divides by device tensors
+    # and takes correctly rounded square roots (ROADMAP Queue 3 names the
+    # ops that may still differ in the last bit on other inputs)
     a, b = mappers[0].smap, mappers[1].smap
-    for k in ("px", "py", "pz", "conf", "init_t", "last_t", "radius"):
-        np.testing.assert_allclose(a.column(k)[:n].cpu().numpy(), b.column(k)[:n].numpy(),
-                                   rtol=1e-5, err_msg=k)
-    for k in ("nx", "ny", "nz"):  # unit vectors: error relative to length 1
-        np.testing.assert_allclose(a.column(k)[:n].cpu().numpy(), b.column(k)[:n].numpy(),
-                                   rtol=0, atol=1e-5, err_msg=k)
-    if not torch.equal(a.column("colorsem")[:n].cpu(), b.column("colorsem")[:n]):
-        raise AssertionError("small: colorsem bits differ")
-    emit("small", frames=5, count=n, stats_equal=True)
+    for k in ("px", "py", "pz", "nx", "ny", "nz", "conf", "init_t", "last_t", "radius",
+              "colorsem"):
+        if not torch.equal(a.column(k)[:n].cpu(), b.column(k)[:n]):
+            raise AssertionError(f"small: column {k} differs on "
+                                 f"{int((a.column(k)[:n].cpu() != b.column(k)[:n]).sum())} surfels")
+    emit("small", frames=5, count=n, stats_equal=True, map_bit_equal=True,
+         last_bit_differences=last_bit_differences(dev))
+
+
+def last_bit_differences(dev) -> dict:
+    """The ops that ROADMAP Queue 3 names as rounding differently on the
+    card and the CPU, on random inputs (seed 0): elements that differ."""
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.uniform(-1.0, 1.0, 1 << 20).astype(np.float32))
+    mats = torch.from_numpy(rng.standard_normal((200, 2, 4, 4)).astype(np.float32))
+    card = torch.stack([torch.matmul(a.to(dev), b.to(dev)).cpu() for a, b in mats])
+    cpu = torch.stack([torch.matmul(a, b) for a, b in mats])
+    return {"arccos of 2^20": int((torch.arccos(x.to(dev)).cpu() != torch.arccos(x)).sum()),
+            "4x4 matmul, of 200 products": int((card != cpu).flatten(1).any(1).sum())}
 
 
 def map_checks(smap, scene) -> dict:
@@ -262,45 +365,57 @@ def phase_main(dev, cam, params, kernels, smi: str) -> tuple:
 
 
 def phase_holds(dev, mapper, frames, zbuf_mod) -> None:
-    """The kernels vs their plain versions on the main path's own state."""
-    from surfelmapping_tpu_torch.ops.active import index_candidates
+    """The kernels vs their plain versions on the main path's own state: the
+    active table of the last frame's pose with the n_valid that the fusion
+    step hands K1."""
+    from surfelmapping_tpu_torch.ops.active import (
+        gather_active, index_candidates, plan_active_blocks, valid_prefix)
     from surfelmapping_tpu_torch.ops.preprocess import (
         metricize_depth, preprocess_frame, stencil_chain_plain)
     from surfelmapping_tpu_torch.ops.transforms import invert_se3
 
     cam, params = mapper.cam, mapper.params
     rgb, depth, sem, pose = frames[-1]
-    at = mapper.active_table(pose)
-    zkey, fpix = index_candidates(at, invert_se3(pose), float(mapper.tick), cam, params)
+    smap, B = mapper.smap, mapper.map_config.block_size
+    T_inv = invert_se3(pose)
+    budget = min(mapper.active_blocks, smap.capacity // B)  # the fusion step's
+    blk, n_active = plan_active_blocks(smap, T_inv, cam, params, budget, B)
+    if int(n_active) > budget:
+        raise AssertionError(f"holds: {int(n_active)} active blocks over the budget {budget}")
+    at = gather_active(smap, blk, B)
+    n_valid = valid_prefix(n_active, blk.shape[0], B)
+    if int(n_valid) != int(at.slot_valid.sum()):
+        raise AssertionError("holds: n_valid is not the table's valid prefix")
+    zkey, fpix = index_candidates(at, T_inv, float(mapper.tick), cam, params)
     P = cam.height * cam.width
-    zb, ib = zbuf_mod.zbuffer_argmin(zkey, fpix, P, at.slot_valid)
+    zb, ib = zbuf_mod.zbuffer_argmin(zkey, fpix, P, n_valid)
     zr, ir = zbuf_mod.zbuffer_argmin_plain(zkey, fpix, P, at.slot_valid)
-    n_valid = int(at.slot_valid.sum())
     if not (torch.equal(zb, zr) and torch.equal(ib, ir)):
         raise AssertionError("holds: k1 differs on the mapper's active table")
-    k1_ms = cuda_ms(lambda: zbuf_mod.zbuffer_argmin(zkey, fpix, P, at.slot_valid), 50)
-    k1_plain_ms = cuda_ms(lambda: zbuf_mod.zbuffer_argmin_plain(zkey, fpix, P, at.slot_valid), 20)
+    kernel = lambda: zbuf_mod.zbuffer_argmin_packed(zkey, fpix, P, n_valid)  # noqa: E731
+    k1_ms, k1_ms_device = cuda_ms(kernel, 50), cuda_ms(kernel, 50, hold=True)
+    k1_ms_device_cold = cuda_ms_cold(kernel, 20)
+    k1_plain_ms = cuda_ms(lambda: zbuf_mod.zbuffer_argmin_plain(zkey, fpix, P, n_valid), 20)
 
     got = preprocess_frame(depth, sem, cam, params)
     ref = stencil_chain_plain(metricize_depth(depth, cam, params), sem, cam, params)
-    err = float((got - ref).abs().max())
-    if err > 1e-4:
-        raise AssertionError(f"holds: k2 differs by {err}")
-    emit("holds", k1_table_slots=at.size, k1_n_valid=n_valid,
+    if not torch.equal(got, ref):
+        raise AssertionError(f"holds: k2 differs on {int((got != ref).sum())} pixels")
+    emit("holds", k1_table_slots=at.size, k1_n_valid=int(n_valid),
          k1_pixels_hit=int((ib != INT32_MAX).sum()), k1_exact=True, k1_ms=k1_ms,
-         k1_plain_ms=k1_plain_ms, k2_max_abs_err=err)
+         k1_ms_device=k1_ms_device, k1_ms_device_cold=k1_ms_device_cold,
+         k1_plain_ms=k1_plain_ms, k2_bit_equal=True)
 
 
-def phase_outres(dev, zbuf_mod, outres_mod) -> dict:
+def phase_outres(dev, outres_mod) -> dict:
     """P1 and P2 against their plain version at the TPU probes' shapes,
-    exact, with a min-id tie planted; K1 timed at the renderer's shape."""
+    exact, with a min-id tie planted."""
     from surfelmapping_tpu_torch.tools.timing import bound_ms, packed_scatter_min
 
     A = 1 << 20
     rng = np.random.default_rng(SEED)
     res = {}
-    for name, P in (("outres", 453_620), ("outres", 4 * 453_620), ("pallas_zbuf", 453_632),
-                    ("zbuffer_argmin", 4 * 453_620)):
+    for name, P in (("outres", 453_620), ("outres", 4 * 453_620), ("pallas_zbuf", 453_632)):
         zkey = rng.integers(100, 1 << 30, A).astype(np.int32)
         fpix = rng.integers(0, P, A).astype(np.int32)
         fpix[fpix == 4242] = 4243
@@ -308,23 +423,16 @@ def phase_outres(dev, zbuf_mod, outres_mod) -> dict:
         fpix[[5, 17, 123_456]] = 4242
         zk = torch.from_numpy(zkey).to(dev)
         fp = torch.from_numpy(fpix).to(dev)
-        if name == "zbuffer_argmin":  # K1 at the renderer's 4-class shape
-            n_pix, every = P, torch.ones(A, dtype=torch.bool, device=dev)
-            zb, ib = zbuf_mod.zbuffer_argmin(zk, fp, P, every)
-            zr, ir = zbuf_mod.zbuffer_argmin_plain(zk, fp, P, every)
-            kernel = lambda: zbuf_mod.zbuffer_argmin(zk, fp, P, every)  # noqa: E731
-            plain = lambda: zbuf_mod.zbuffer_argmin_plain(zk, fp, P, every)  # noqa: E731
+        if name == "outres":
+            n_pix, entry = outres_mod.outres_pixels(P), outres_mod.P2
+            zb, ib = outres_mod.outres(zk, fp, P)
         else:
-            if name == "outres":
-                n_pix, entry = outres_mod.outres_pixels(P), outres_mod.P2
-                zb, ib = outres_mod.outres(zk, fp, P)
-            else:
-                n_pix, entry = P, outres_mod.P1
-                zb, ib = (t.reshape(-1) for t in outres_mod.pallas_zbuf(zk, fp, P))
-            ref = outres_mod.zbuffer_outres_plain(zk, fp, n_pix)
-            zr, ir = ref[:zb.shape[0], 1], ref[:zb.shape[0], 0]
-            kernel = lambda: outres_mod.zbuffer_outres(zk, fp, n_pix, entry)  # noqa: E731
-            plain = lambda: outres_mod.zbuffer_outres_plain(zk, fp, n_pix)  # noqa: E731
+            n_pix, entry = P, outres_mod.P1
+            zb, ib = (t.reshape(-1) for t in outres_mod.pallas_zbuf(zk, fp, P))
+        ref = outres_mod.zbuffer_outres_plain(zk, fp, n_pix)
+        zr, ir = ref[:zb.shape[0], 1], ref[:zb.shape[0], 0]
+        kernel = lambda: outres_mod.zbuffer_outres(zk, fp, n_pix, entry)  # noqa: E731
+        plain = lambda: outres_mod.zbuffer_outres_plain(zk, fp, n_pix)  # noqa: E731
         torch.cuda.synchronize()
         if not (torch.equal(zb, zr) and torch.equal(ib, ir)):
             raise AssertionError(f"outres: {name} P={P}: kernel != plain on "
@@ -338,8 +446,8 @@ def phase_outres(dev, zbuf_mod, outres_mod) -> dict:
         max_err = max(int((zb.long() - zr.long()).abs().max()),
                       int((ib.long() - ir.long()).abs().max()))
         r = dict(P=P, A=A, buffer_pixels=n_pix, exact=True, max_abs_err=max_err,
-                 empty_pixels=int((ib == INT32_MAX).sum()),
-                 ms=cuda_ms(kernel, 50), plain_ms=cuda_ms(plain, 20),
+                 empty_pixels=int((ib == INT32_MAX).sum()), ms=cuda_ms(kernel, 50),
+                 ms_device=cuda_ms(kernel, 50, hold=True), plain_ms=cuda_ms(plain, 20),
                  library_ms=cuda_ms(library, 20), bound_ms=bound_ms(A, n_pix))
         res[f"{name}_{P}"] = r
     emit("outres", **res)
@@ -408,6 +516,7 @@ def phase_render_holds(dev, mapper, scene, view, n_active: int, zbuf_mod) -> Non
     candidates, the fast renderer vs the exact one, and a render at a
     mapping pose vs that input frame."""
     from surfelmapping_tpu_torch.metrics import psnr, render_vs_frame_psnr
+    from surfelmapping_tpu_torch.ops.active import valid_prefix
     from surfelmapping_tpu_torch.ops.splat import cull_for_render, fast_candidates, render_view
 
     cam = mapper.cam
@@ -420,14 +529,17 @@ def phase_render_holds(dev, mapper, scene, view, n_active: int, zbuf_mod) -> Non
     vt = torch.as_tensor(view, device=dev)
     culled, _, n_act = cull_for_render(smap, vt, cam, budget, 2048, margin=7)
     key, cflat, classes, _ = fast_candidates(culled, vt, cam)
+    nv = valid_prefix(n_act, budget, 2048)  # what the renderer hands K1
     slot_valid = torch.arange(culled.capacity, device=dev) < int(n_act) * 2048
     P = len(classes) * cam.height * cam.width
-    zb, ib = zbuf_mod.zbuffer_argmin(key, cflat, P, slot_valid)
+    zb, ib = zbuf_mod.zbuffer_argmin(key, cflat, P, nv)
     zr, ir = zbuf_mod.zbuffer_argmin_plain(key, cflat, P, slot_valid)
     if not (torch.equal(zb, zr) and torch.equal(ib, ir)):
         raise AssertionError("render_holds: k1 differs on the view's candidates")
-    k1_ms = cuda_ms(lambda: zbuf_mod.zbuffer_argmin(key, cflat, P, slot_valid), 50)
-    k1_plain_ms = cuda_ms(lambda: zbuf_mod.zbuffer_argmin_plain(key, cflat, P, slot_valid), 20)
+    kernel = lambda: zbuf_mod.zbuffer_argmin_packed(key, cflat, P, nv)  # noqa: E731
+    k1_ms, k1_ms_device = cuda_ms(kernel, 50), cuda_ms(kernel, 50, hold=True)
+    k1_ms_device_cold = cuda_ms_cold(kernel, 20)
+    k1_plain_ms = cuda_ms(lambda: zbuf_mod.zbuffer_argmin_plain(key, cflat, P, nv), 20)
 
     fast = render_view(smap, view, cam, start_blocks=n_active + 1, method="fast")
     exact = render_view(smap, view, cam, start_blocks=n_active + 1, method="exact")
@@ -443,8 +555,9 @@ def phase_render_holds(dev, mapper, scene, view, n_active: int, zbuf_mod) -> Non
     # z^2 / (f * camera height) per pixel on the ground, so the limit carries
     # over to the mutual hits nearer than 6 m * sqrt(f / 100) (16 m at KITTI)
     near = both & (z_exact < 6.0 * np.sqrt(cam.fx / 100.0))
-    r = dict(k1_table_slots=culled.capacity, k1_n_valid=int(n_act) * 2048,
+    r = dict(k1_table_slots=culled.capacity, k1_n_valid=int(nv),
              k1_pixels_hit=int((ib != INT32_MAX).sum()), k1_exact=True, k1_ms=k1_ms,
+             k1_ms_device=k1_ms_device, k1_ms_device_cold=k1_ms_device_cold,
              k1_plain_ms=k1_plain_ms, coverage_fast=float(hf.mean()),
              coverage_exact=float(he.mean()), exact_hits_also_fast=float(both.sum() / he.sum()),
              fast_vs_exact_psnr=p_fast, median_depth_diff=float(np.median(derr[both])),
@@ -507,12 +620,13 @@ def main() -> int:
     ptxas = {k.name: [ln.strip() for ln in k.build_log.splitlines()
                       if "registers" in ln or "spill" in ln or "smem" in ln]
              for k in kernels}
-    emit("build", seconds=build_s, ptxas=ptxas)
-
     cam, params = kitti_cam(), PipelineParams()
+    k2_build = k2_design(k2_mod, params.smooth_radius)
+    emit("build", seconds=build_s, ptxas=ptxas, k2=k2_build)
+
     k1 = phase_k1(dev, zbuf_mod)
     k2 = phase_k2(dev, cam, params)
-    probe = phase_outres(dev, zbuf_mod, outres_mod)
+    probe = phase_outres(dev, outres_mod)
     phase_small(dev)
     mapper, scene, frames, fusion = phase_main(dev, cam, params, counters, smi)
     phase_holds(dev, mapper, frames, zbuf_mod)
@@ -522,26 +636,40 @@ def main() -> int:
     emit("paths", launches=dict(main=fusion, render=render, probes=probes))
     p1, p2 = probe["pallas_zbuf_453632"], probe["outres_1814480"]
 
+    k1i, k1r = k1["index"], k1["render"]
     table = [
+        # index map's shape first; the renderer's shape in the *_render keys
         dict(name="zbuffer_argmin", route="cuda", source=zbuf_mod.KERNEL.repo_source,
              replaces="surfelmapping_tpu/ops/pallas_zbuf.py:188",
              launches=fusion["zbuffer_argmin"] + render["zbuffer_argmin"],
-             max_abs_err=k1["max_abs_err"],
-             ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-             bound_by="bytes", library_ms=k1["library_ms"]),
+             max_abs_err=max(k1i["max_abs_err"], k1r["max_abs_err"]),
+             ms=k1i["ms"], plain_ms=k1i["plain_ms"], bound_ms=k1i["bound_ms"],
+             bound_by="bytes", library_ms=k1i["library_ms"], ms_device=k1i["ms_device"],
+             ms_device_cold=k1i["ms_device_cold"], library_ms_device=k1i["library_ms_device"],
+             library_ms_device_cold=k1i["library_ms_device_cold"],
+             device_launches_per_call=k1i["device_launches_per_call"],
+             ms_render=k1r["ms"], ms_device_render=k1r["ms_device"],
+             ms_device_cold_render=k1r["ms_device_cold"], plain_ms_render=k1r["plain_ms"],
+             bound_ms_render=k1r["bound_ms"], library_ms_render=k1r["library_ms"],
+             library_ms_device_render=k1r["library_ms_device"],
+             library_ms_device_cold_render=k1r["library_ms_device_cold"]),
         dict(name="preprocess_stencil", route="cuda", source=k2_mod.KERNEL.repo_source,
              replaces="surfelmapping_tpu/ops/pallas_preprocess.py:188",
              launches=fusion["preprocess_stencil"], max_abs_err=k2["max_abs_err"],
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
-             bound_by=k2["bound_by"], library_ms=None),
+             bound_by=k2["bound_by"], library_ms=None, ms_device=k2["ms_device"],
+             ms_device_cold=k2["ms_device_cold"], ctas_per_sm=k2_build["ctas_per_sm"],
+             sass_instructions_per_tap=k2_build["sass_instructions_per_tap"]),
         dict(name="pallas_zbuf", route="cuda", source=outres_mod.KERNEL.repo_source,
              replaces="tools/probe_pallas_zbuf.py:94", launches=probes["pallas_zbuf"],
              max_abs_err=p1["max_abs_err"], ms=p1["ms"], plain_ms=p1["plain_ms"],
-             bound_ms=p1["bound_ms"], bound_by="bytes", library_ms=p1["library_ms"]),
+             bound_ms=p1["bound_ms"], bound_by="bytes", library_ms=p1["library_ms"],
+             ms_device=p1["ms_device"]),
         dict(name="outres", route="cuda", source=outres_mod.KERNEL.repo_source,
              replaces="tools/probe_zbuf_variants.py:66", launches=probes["outres"],
              max_abs_err=p2["max_abs_err"], ms=p2["ms"], plain_ms=p2["plain_ms"],
-             bound_ms=p2["bound_ms"], bound_by="bytes", library_ms=p2["library_ms"]),
+             bound_ms=p2["bound_ms"], bound_by="bytes", library_ms=p2["library_ms"],
+             ms_device=p2["ms_device"]),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

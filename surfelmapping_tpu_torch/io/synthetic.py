@@ -138,3 +138,36 @@ def kitti_cam() -> CameraIntrinsics:
     return CameraIntrinsics(
         fx=718.856, fy=718.856, cx=607.1928, cy=185.2157, width=1226, height=370
     )
+
+
+# Cases of the preprocess stencil kernel against its plain version, as
+# (H, W, stereo border, smooth radius, class): the KITTI shape; shapes that
+# are not multiples of the kernel's tile (30 columns, 14 rows); radii 0, 1,
+# 3, 6; borders 0 and 80; one class everywhere (the gated-class sentinel must
+# not match it); the class INT32_MIN (the sentinel itself: the general path).
+STENCIL_CASES = [(70, 200, 16.0, 6, None), (37, 200, 0.0, 6, None), (370, 1226, 80.0, 6, None),
+                 (45, 97, 0.0, 1, None), (31, 61, 16.0, 0, None), (17, 300, 80.0, 3, None),
+                 (29, 33, 3.0, 6, 4), (370, 1226, 80.0, 6, 7), (53, 127, 0.0, 6, -2**31)]
+
+
+def stencil_frame(H: int, W: int, rng: np.random.Generator,
+                  cls: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """A metric depth f32[H,W] and class i32[H,W] frame for the preprocess
+    stencil: class edges, holes, far and near outliers.  ``cls`` puts one
+    class everywhere; INT32_MIN goes over the top half, class 5 below."""
+    y, x = np.mgrid[0:H, 0:W].astype(np.float32)
+    depth = 5.0 + 4.0 * np.sin(x / 37.0) + 0.002 * y * x / W
+    depth[:, W // 2:] += 3.0
+    depth[rng.random((H, W)) < 0.03] = 0.0
+    depth[rng.random((H, W)) < 0.01] = 150.0
+    depth[rng.random((H, W)) < 0.01] = 0.5
+    sem = np.zeros((H, W), np.int32)
+    sem[:, : W // 3] = 1
+    sem[H // 2:, :] += 2
+    sem[: H // 8, 2 * W // 3:] = 10
+    sem[rng.random((H, W)) < 0.01] = 11
+    if cls is not None:
+        sem[:] = cls
+    if cls == -2**31:
+        sem[H // 2:] = 5
+    return depth.astype(np.float32), sem

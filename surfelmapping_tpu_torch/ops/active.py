@@ -34,7 +34,7 @@ from ..config import CameraIntrinsics, PipelineParams
 from ..surfels import SurfelMap
 from .frame_surfels import association_candidates, ray_geometry
 from .index_map import INT32_MAX, _depth_key
-from .transforms import transform_planar
+from .transforms import ieee_sqrt, transform_planar
 from .zbuf import zbuffer_argmin
 
 
@@ -75,9 +75,10 @@ class ActiveTable:
     Prefix contract: the valid slots form a PREFIX of the table
     (``slot_valid`` is non-increasing), because plan_active_blocks orders
     active blocks first.  The index-map z-buffer reads only the first
-    sum(slot_valid) candidates and relies on it; a table with interleaved
-    invalid slots would lose valid candidates (the kernel wrapper checks the
-    contract on its CPU path, ops/zbuf.py).
+    n_valid candidates (:func:`valid_prefix`, or sum(slot_valid)) and relies
+    on it; a table with interleaved invalid slots would lose valid
+    candidates (the kernel wrapper checks a mask on its CPU path,
+    ops/zbuf.py).
     """
 
     x: torch.Tensor          # f32[A]
@@ -175,6 +176,14 @@ def plan_active_blocks(
     return blk, n_active
 
 
+def valid_prefix(n_active: torch.Tensor, num_blocks: int, block_size: int) -> torch.Tensor:
+    """The valid prefix of the active table that :func:`gather_active`
+    builds from :func:`plan_active_blocks`' ``n_active``: its slots of the
+    true active blocks, at most ``num_blocks`` of them (0-d int32, equal to
+    ``slot_valid.sum()``)."""
+    return torch.clamp(n_active, max=num_blocks) * block_size
+
+
 def gather_active(smap: SurfelMap, blk: torch.Tensor, block_size: int) -> ActiveTable:
     """Contiguous block gather into flat 1-D active columns.  Filler blocks
     (id G) gather block G-1, as JAX's clamped gather does; slot_valid masks
@@ -237,7 +246,7 @@ def conflict_active(
     safe_z = torch.where(torch.abs(z) < 1e-12, 1e-12, z)
     xl = x / safe_z
     yl = y / safe_z
-    lam = torch.sqrt(xl * xl + yl * yl + 1.0)
+    lam = ieee_sqrt(xl * xl + yl * yl + 1.0)
 
     ui = torch.clamp(torch.floor(u).to(torch.int64), 0, W - 1)
     vi = torch.clamp(torch.floor(v).to(torch.int64), 0, H - 1)
@@ -297,14 +306,17 @@ def index_active(
     time: float,
     cam: CameraIntrinsics,
     params: PipelineParams,
+    n_valid: torch.Tensor,
 ) -> torch.Tensor:
     """predictIndices (src/IndexMap.cpp:138-198) over the active table:
     i64[H*F, W*F] image of ACTIVE slot positions (-1 = empty), resolved by
     the scatter-argmin z-buffer (ops/zbuf.py).  Candidate ids ARE active
-    positions, so no translation is needed."""
+    positions, so no translation is needed.  ``n_valid`` is the table's
+    valid prefix (0-d int32, :func:`valid_prefix`), so the z-buffer needs no
+    count of ``at.slot_valid``."""
     icam = cam.scaled(params.index_factor)
     zkey, fpix = index_candidates(at, T_inv, time, cam, params)
-    _, idbuf = zbuffer_argmin(zkey, fpix, icam.height * icam.width, at.slot_valid)
+    _, idbuf = zbuffer_argmin(zkey, fpix, icam.height * icam.width, n_valid)
     return torch.where(idbuf == INT32_MAX, -1, idbuf.long()).view(icam.height, icam.width)
 
 
@@ -335,8 +347,8 @@ class AssocFlat:
 def _angle_between(ax, ay, az, bx, by, bz) -> torch.Tensor:
     """acos(a.b/(|a||b|)) exactly as data.vert:54-57 (component form)."""
     dot = ax * bx + ay * by + az * bz
-    na = torch.sqrt(ax * ax + ay * ay + az * az)
-    nb = torch.sqrt(bx * bx + by * by + bz * bz)
+    na = ieee_sqrt(ax * ax + ay * ay + az * az)
+    nb = ieee_sqrt(bx * bx + by * by + bz * bz)
     cosv = dot / torch.clamp(na * nb, min=1e-12)
     return torch.arccos(torch.clamp(cosv, -1.0, 1.0))
 
@@ -407,7 +419,7 @@ def associate_active(
             cnx = R[0, 0] * onx + R[0, 1] * ony + R[0, 2] * onz
             cny = R[1, 0] * onx + R[1, 1] * ony + R[1, 2] * onz
             cnz = R[2, 0] * onx + R[2, 1] * ony + R[2, 2] * onz
-            nlen = torch.clamp(torch.sqrt(cnx * cnx + cny * cny + cnz * cnz), min=1e-12)
+            nlen = torch.clamp(ieee_sqrt(cnx * cnx + cny * cny + cnz * cnz), min=1e-12)
             cnx, cny, cnz = cnx / nlen, cny / nlen, cnz / nlen
 
             o_sem = (o_cs >> 24) & 0xFF
@@ -417,7 +429,7 @@ def associate_active(
             crx = c_rayy * pz - 1.0 * py
             cry = 1.0 * px - c_rayx * pz
             crz = c_rayx * py - c_rayy * px
-            dist = torch.sqrt(crx * crx + cry * cry + crz * crz) / c_lam
+            dist = ieee_sqrt(crx * crx + cry * cry + crz * crz) / c_lam
             ang = _angle_between(cnx, cny, cnz, c_nx, c_ny, c_nz)
             ok = has & sem_gate & depth_gate & (torch.abs(ang) < p.merge_normal_angle)
             dist = torch.where(ok, dist, torch.inf)
@@ -473,7 +485,7 @@ def associate_active(
     wnx = Rw[0, 0] * nxx + Rw[0, 1] * nyy + Rw[0, 2] * nzz
     wny = Rw[1, 0] * nxx + Rw[1, 1] * nyy + Rw[1, 2] * nzz
     wnz = Rw[2, 0] * nxx + Rw[2, 1] * nyy + Rw[2, 2] * nzz
-    wl = torch.clamp(torch.sqrt(wnx * wnx + wny * wny + wnz * wnz), min=1e-12)
+    wl = torch.clamp(ieee_sqrt(wnx * wnx + wny * wny + wnz * wnz), min=1e-12)
     wnx, wny, wnz = wnx / wl, wny / wl, wnz / wl
 
     mark = torch.where(c_valid, torch.where(matched, best["id"], -1), -10)

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from .transforms import device_scalar
+
 
 def encode_color(rgb: torch.Tensor, semantic: torch.Tensor) -> torch.Tensor:
     """Pack [..., 3] float rgb in [0,1] + [...] integer semantic into int32
@@ -34,12 +36,15 @@ def decode_color(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     r = (packed >> 16) & 0xFF
     g = (packed >> 8) & 0xFF
     b = packed & 0xFF
-    # divided by a device tensor, not a Python scalar: PyTorch's CUDA
-    # division by a scalar multiplies by its reciprocal, which rounds half
-    # of the 256 levels differently from the CPU and from XLA
-    levels = torch.full((), 255.0, dtype=torch.float32, device=packed.device)
-    rgb = torch.stack([r, g, b], dim=-1).to(torch.float32) / levels
-    return rgb, sem
+    return unit_rgb(torch.stack([r, g, b], dim=-1)), sem
+
+
+def unit_rgb(levels: torch.Tensor) -> torch.Tensor:
+    """Integer colour levels 0..255 as float32 in [0, 1], divided by a
+    device tensor: PyTorch's CUDA division by a Python scalar multiplies by
+    its reciprocal, which rounds half of the 256 levels differently from the
+    CPU and from XLA."""
+    return levels.to(torch.float32) / device_scalar(255.0, levels.device)
 
 
 # Cityscapes-style 19-class train-id palette of the reference's semantic

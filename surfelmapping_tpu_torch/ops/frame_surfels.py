@@ -8,7 +8,9 @@
   * the candidate half of the association kernel: src/Shaders/data.vert:59-113
 
 Vector quantities are planar [H,W] component images; color + class travel
-as one packed int32 image (ops/colors.py).
+as one packed int32 image (ops/colors.py).  Divisions by camera constants
+take a device tensor and square roots take ``ieee_sqrt``, so the card, the
+CPU and XLA round alike (ops/transforms.py).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from ..config import CameraIntrinsics, PipelineParams
 from .colors import encode_color
 from .preprocess import _shift
+from .transforms import device_scalar, ieee_sqrt
 
 SQRT2 = 1.41421356237
 
@@ -36,8 +39,9 @@ def backproject(depth: torch.Tensor, cam: CameraIntrinsics):
     """Depth image -> camera-frame vertex component images (X, Y, Z)
     (geometry.glsl getVertex: X=(x-cx)z/fx, Y=(y-cy)z/fy, Z=z)."""
     x, y = pixel_grid(cam, depth.device)
-    X = (x - cam.cx) * depth / cam.fx
-    Y = (y - cam.cy) * depth / cam.fy
+    fx, fy = device_scalar(cam.fx, depth.device), device_scalar(cam.fy, depth.device)
+    X = (x - cam.cx) * depth / fx
+    Y = (y - cam.cy) * depth / fy
     return X, Y, depth
 
 
@@ -49,12 +53,13 @@ def central_normals(depth: torch.Tensor, cam: CameraIntrinsics):
     to the edge texel while the unclamped pixel coordinate (x±1, y±1) is used
     for back-projection."""
     x, y = pixel_grid(cam, depth.device)
+    fx, fy = device_scalar(cam.fx, depth.device), device_scalar(cam.fy, depth.device)
 
     def vertex_at(dy: int, dx: int):
         d, _ = _shift(depth, dy, dx)  # clamped depth sample
         xs = x + dx  # unclamped coordinate, as the shader passes x±1
         ys = y + dy
-        return (xs - cam.cx) * d / cam.fx, (ys - cam.cy) * d / cam.fy, d
+        return (xs - cam.cx) * d / fx, (ys - cam.cy) * d / fy, d
 
     lx, ly, lz = vertex_at(0, -1)
     rx, ry, rz = vertex_at(0, 1)
@@ -65,14 +70,14 @@ def central_normals(depth: torch.Tensor, cam: CameraIntrinsics):
     cx = ay * bz - az * by
     cy = az * bx - ax * bz
     cz = ax * by - ay * bx
-    n = torch.clamp(torch.sqrt(cx * cx + cy * cy + cz * cz), min=1e-12)
+    n = torch.clamp(ieee_sqrt(cx * cx + cy * cy + cz * cz), min=1e-12)
     return cx / n, cy / n, cz / n
 
 
 def surfel_radius(depth: torch.Tensor, norm_z: torch.Tensor, cam: CameraIntrinsics) -> torch.Tensor:
     """Disc radius r = min(2*(z*sqrt2/meanFocal), (z*sqrt2/meanFocal)/|nz|)
     (surfels.glsl:19-32), meanFocal = (fx+fy)/2."""
-    mean_focal = (cam.fx + cam.fy) / 2.0
+    mean_focal = device_scalar((cam.fx + cam.fy) / 2.0, depth.device)
     radius = depth * SQRT2 / mean_focal
     return torch.minimum(2.0 * radius, radius / torch.clamp(torch.abs(norm_z), min=1e-12))
 
@@ -165,7 +170,7 @@ def ray_geometry(cam: CameraIntrinsics, device):
     """Per-pixel unit-plane ray components (xl, yl) and length lambda
     (data.vert:65-71); the z component is identically 1."""
     x, y = pixel_grid(cam, device)
-    xl = (x - cam.cx) / cam.fx
-    yl = (y - cam.cy) / cam.fy
-    lam = torch.sqrt(xl * xl + yl * yl + 1.0)
+    xl = (x - cam.cx) / device_scalar(cam.fx, device)
+    yl = (y - cam.cy) / device_scalar(cam.fy, device)
+    lam = ieee_sqrt(xl * xl + yl * yl + 1.0)
     return xl, yl, lam

@@ -15,7 +15,7 @@ import torch
 from ..config import CameraIntrinsics, PipelineParams
 from ..surfels import COLUMNS, SurfelMap, empty_map
 from .frame_surfels import FrameSurfels
-from .transforms import normalize_planar, rotate_planar, transform_planar
+from .transforms import ieee_sqrt, normalize_planar, rotate_planar, transform_planar
 
 
 def conflict_pass(
@@ -54,7 +54,7 @@ def conflict_pass(
         & (z < max_depth)
     )
 
-    lam = torch.sqrt(xl * xl + yl * yl + 1.0)
+    lam = ieee_sqrt(xl * xl + yl * yl + 1.0)
 
     # nearest-texel sample, clamped to edge; sky/hole substitutions folded in
     hole = depth if is_clean else torch.where(depth == 0.0, max_depth + 20.0, depth)

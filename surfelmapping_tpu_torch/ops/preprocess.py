@@ -22,6 +22,7 @@ import math
 import torch
 
 from ..config import CameraIntrinsics, PipelineParams
+from .transforms import device_scalar
 
 
 def _shift(img: torch.Tensor, dy: int, dx: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -48,7 +49,7 @@ def metricize_depth(
     lo = params.near_clip * 1000.0
     hi = (params.far_clip - 0.001) * 1000.0
     valid = (d > lo) & (d < hi)
-    metric = torch.where(valid, d / 1000.0, 0.0)
+    metric = torch.where(valid, d / device_scalar(1000.0, d.device), 0.0)
     cols = torch.arange(cam.width, dtype=torch.float32, device=d.device) + 0.5
     in_border = cols < params.stereo_border
     return torch.where(in_border[None, :], 0.0, metric)
@@ -166,8 +167,8 @@ def remove_movings(
     border_or_invalid = (x < p.stereo_border) | (depth <= p.near_clip)
 
     # reproject into the last frame
-    X = (x - cam.cx) * depth / cam.fx
-    Y = (y - cam.cy) * depth / cam.fy
+    X = (x - cam.cx) * depth / device_scalar(cam.fx, depth.device)
+    Y = (y - cam.cy) * depth / device_scalar(cam.fy, depth.device)
     R = T_curr_to_last[:3, :3]
     t = T_curr_to_last[:3, 3]
     Xl = R[0, 0] * X + R[0, 1] * Y + R[0, 2] * depth + t[0]

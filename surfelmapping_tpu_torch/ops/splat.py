@@ -23,7 +23,7 @@ Three renderers, as in the JAX package:
     goes once through the z-buffer kernel K1 (ops/zbuf.py) into one of four
     class buffers by its pixel radius, then disc-shaped min-dilations of the
     class buffers spread the footprints.  The dilation is plain PyTorch on
-    packed int64 words (key << 32 | id), so each disc stamp is one
+    K1's packed int64 words (key << 32 | id), so each disc stamp is one
     ``torch.minimum`` (164 stamps for the classes 1, 2, 3, 5).
   * :func:`render_view`: culls the map to the in-frustum blocks first
     (:func:`cull_for_render`), so a view costs O(in-frustum surfels), and
@@ -45,12 +45,12 @@ import torch.nn.functional as F
 
 from ..config import CameraIntrinsics
 from ..surfels import COLUMNS, SurfelMap
-from .active import _TABLE_COLS, gather_active
+from .active import _TABLE_COLS, gather_active, valid_prefix
 from .colors import decode_color
 from .index_map import INT32_MAX, _depth_key
-from .transforms import (ieee_sqrt, invert_se3, normalize_planar, rotate_planar,
-                         transform_planar)
-from .zbuf import zbuffer_argmin
+from .transforms import (device_scalar, ieee_sqrt, invert_se3, normalize_planar,
+                         rotate_planar, transform_planar)
+from .zbuf import key_id_views, zbuffer_argmin_packed
 
 SQRT2 = 1.41421356237
 EMPTY_WORD = (INT32_MAX << 32) | INT32_MAX  # packed (key, id) of an empty pixel
@@ -216,8 +216,7 @@ def splat_render(
 
     # focal lengths as device tensors: PyTorch's CUDA division by a Python
     # scalar multiplies by its reciprocal, which rounds differently from XLA
-    fx = torch.full((), cam.fx, dtype=torch.float32, device=dev)
-    fy = torch.full((), cam.fy, dtype=torch.float32, device=dev)
+    fx, fy = device_scalar(cam.fx, dev), device_scalar(cam.fy, dev)
 
     def offset_hit(c, ok_base, dj, di):
         qpx = c["pi0"] + di
@@ -350,17 +349,17 @@ def fast_candidates(
     return _depth_key(pz, ok), cflat, classes, large_overflow
 
 
-def _dilate(zbuf: torch.Tensor, idbuf: torch.Tensor, classes: tuple[int, ...],
+def _dilate(packed: torch.Tensor, classes: tuple[int, ...],
             cam: CameraIntrinsics) -> tuple[torch.Tensor, torch.Tensor]:
     """Disc-shaped min-dilation of each class's centre buffer, merged over
     the classes: per pixel the smallest (key, id) pair, by key and then by
-    id, among the centres whose class disc covers it.  Keys and ids are
-    non-negative int32, so the pair packs into one int64 word that orders
-    the same way, and a stamp is one ``torch.minimum``.  Stamps reaching
-    outside the image read the empty word."""
+    id, among the centres whose class disc covers it.  The buffers come from
+    K1 as int64 words (key << 32) | id, which order the same way, so a stamp
+    is one ``torch.minimum``.  Stamps reaching outside the image read the
+    empty word.  Returns the merged (key, id) planes as int32 views."""
     H, W = cam.height, cam.width
-    packed = ((zbuf.to(torch.int64) << 32) | idbuf.to(torch.int64)).view(len(classes), H, W)
-    out = torch.full((H, W), EMPTY_WORD, dtype=torch.int64, device=zbuf.device)
+    packed = packed.view(len(classes), H, W)
+    out = torch.full((H, W), EMPTY_WORD, dtype=torch.int64, device=packed.device)
     for ci, R in enumerate(classes):
         src = torch.constant_pad_nd(packed[ci], (R, R, R, R), EMPTY_WORD)
         for dj in range(-R, R + 1):
@@ -369,8 +368,7 @@ def _dilate(zbuf: torch.Tensor, idbuf: torch.Tensor, classes: tuple[int, ...],
                     continue  # disc-shaped stamp
                 # out[r, c] <- min(out[r, c], centre[r - dj, c - di])
                 torch.minimum(out, src[R - dj:R - dj + H, R - di:R - di + W], out=out)
-    out = out.reshape(-1)
-    return (out >> 32).to(torch.int32), (out & 0xFFFFFFFF).to(torch.int32)
+    return key_id_views(out.reshape(-1))
 
 
 def splat_render_fast(
@@ -396,13 +394,8 @@ def splat_render_fast(
     num_pix = cam.height * cam.width
     key, cflat, classes, large_overflow = fast_candidates(
         smap, view, cam, max_depth, footprint, classes)
-    N = smap.capacity
-    if n_valid is None:
-        slot_valid = torch.ones(N, dtype=torch.bool, device=smap.device)
-    else:
-        slot_valid = torch.arange(N, device=smap.device) < n_valid
-    zbuf, idbuf = zbuffer_argmin(key, cflat, len(classes) * num_pix, slot_valid)
-    keys, ids = _dilate(zbuf, idbuf, classes, cam)
+    packed = zbuffer_argmin_packed(key, cflat, len(classes) * num_pix, n_valid)
+    keys, ids = _dilate(packed, classes, cam)
     out = _decode(smap, keys, ids, cam)
     out["large_overflow"] = large_overflow
     return out
@@ -498,7 +491,7 @@ def _cull_and_render(
     if method == "fast":
         # the culled table holds valid blocks first: stream only that prefix
         # through the z-buffer kernel (a pow2 budget can pad the tail)
-        nv = torch.clamp(n_active, max=num_blocks) * block_size
+        nv = valid_prefix(n_active, num_blocks, block_size)
         out = splat_render_fast(culled, view, cam, max_depth, footprint,
                                 classes=classes, n_valid=nv)
     else:

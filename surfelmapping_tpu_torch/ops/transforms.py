@@ -10,6 +10,8 @@ TF32 product keeps ~10 mantissa bits, several cm at 10-30 m scene scale.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -46,6 +48,20 @@ def ieee_sqrt(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return torch.sqrt(x.to(torch.float64)).to(torch.float32)
     return torch.sqrt(x)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_scalar(value: float, device: torch.device) -> torch.Tensor:
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
+def device_scalar(value: float, device) -> torch.Tensor:
+    """``value`` as a 0-d float32 tensor on ``device`` (cached; never write
+    to it), to divide by.  PyTorch's CUDA division by a Python scalar
+    multiplies by its reciprocal, which rounds differently from a true
+    division on the CPU and in XLA; division by a device tensor is a true
+    IEEE division on every device."""
+    return _device_scalar(float(value), torch.device(device))
 
 
 def normalize_planar(x, y, z):

@@ -35,7 +35,9 @@ from .ops.active import (
     gather_active,
     index_active,
     plan_active_blocks,
+    valid_prefix,
 )
+from .ops.colors import unit_rgb
 from .ops.frame_surfels import feedback_surfels
 from .ops.fusion import compact, conflict_pass, initialize_map
 from .ops.preprocess import metricize_depth, preprocess_frame, remove_movings
@@ -98,7 +100,8 @@ def _fusion_step(smap: SurfelMap, depth_raw, rgb, semantic, pose, last_depth,
         min_depth=params.near_clip, max_depth=params.far_clip,
         fuse_thresh=params.fuse_thresh_factor, is_clean=False,
     )
-    idx_img = index_active(at, T_inv, time, cam, params)
+    idx_img = index_active(at, T_inv, time, cam, params,
+                           n_valid=valid_prefix(n_active, blk.shape[0], block_size))
     assoc = associate_active(depth_m, rgb, semantic, idx_img, at, pose, T_inv,
                              time, cam, params)
     smap, dropped = fuse_append_map(smap, at, assoc)
@@ -419,7 +422,7 @@ class SurfelMapper:
                 rgb = self._upload(rgb_np)
             rgb = rgb.to(dev)
             if not rgb.is_floating_point():
-                rgb = rgb.to(torch.float32) / 255.0
+                rgb = unit_rgb(rgb)
             elif rgb.dtype != torch.float32:
                 rgb = rgb.to(torch.float32)
         if depth is not None and not isinstance(depth, torch.Tensor):

@@ -41,7 +41,7 @@ STAGES = ("preprocess_frame", "remove_movings", "plan_active_blocks", "gather_ac
           "conflict_active", "index_active", "associate_active", "fuse_append_map")
 # render stages: the functions splat.render_view reaches through the module
 RENDER_STAGES = {"cull_for_render": "cull", "fast_candidates": "centres",
-                 "zbuffer_argmin": "k1", "_dilate": "dilation", "_decode": "decode"}
+                 "zbuffer_argmin_packed": "k1", "_dilate": "dilation", "_decode": "decode"}
 
 
 @contextlib.contextmanager

@@ -37,12 +37,11 @@ def run(A: int = 1 << 20, iters: int = 20, seed: int = 0) -> list[dict]:
     ref = zbuf_outres.zbuffer_outres_plain(zk, fp, P_PAD)
     if not (torch.equal(zb.reshape(-1), ref[:, 1]) and torch.equal(ib.reshape(-1), ref[:, 0])):
         raise AssertionError("pallas_zbuf: kernel != plain")
-    every = torch.ones(A, dtype=torch.bool, device=dev)
     library, _ = packed_scatter_min(zk, fp, P)
     fns = {
         "plain 2-pass": lambda: zbuf_outres.zbuffer_outres_plain(zk, fp, P_PAD),
         "P1 kernel": lambda: zbuf_outres.zbuffer_outres(zk, fp, P_PAD, zbuf_outres.P1),
-        "K1 kernel": lambda: zbuf.zbuffer_argmin(zk, fp, P, every),
+        "K1 kernel": lambda: zbuf.zbuffer_argmin(zk, fp, P),
         "library scatter_reduce": library,
     }
     rows = []

@@ -55,8 +55,7 @@ def run(A: int = 1 << 20, iters: int = 20, seed: int = 0) -> list[dict]:
         if not (torch.equal(zb, ref[:P, 1]) and torch.equal(ib, ref[:P, 0])):
             raise AssertionError(f"{name}: kernel != plain")
         ms = cuda_ms(lambda: zbuf_outres.zbuffer_outres(zk, fp, n_pix, zbuf_outres.P2), iters)
-        every = torch.ones(A, dtype=torch.bool, device=dev)
-        k1_ms = cuda_ms(lambda: zbuf.zbuffer_argmin(zk, fp, P, every), iters)
+        k1_ms = cuda_ms(lambda: zbuf.zbuffer_argmin(zk, fp, P), iters)
         library, _ = packed_scatter_min(zk, fp, P)
         library_ms = cuda_ms(library, iters)
         row = dict(case=name, P=P, A=A, chunk=chunk, exact=True, ms=ms,

@@ -12,21 +12,49 @@ import torch
 from ..ops.index_map import INT32_MAX
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+HOLD_CYCLES = 20_000_000   # ~10 ms of the card's clock
+FLUSH_BYTES = 64 << 20     # more than the H100's 50 MB L2
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean time of ``fn`` on the card by CUDA events over ``iters`` calls."""
+def cuda_ms(fn, iters: int, warmup: int = 2, hold: bool = False) -> float:
+    """Mean time per call of ``fn`` by CUDA events over ``iters`` calls,
+    warm in L2.  By default the calls run back to back as the host issues
+    them, so the time per call is the larger of the host's and the card's.
+    With ``hold=True`` the stream is held by a ~10 ms spin first, so the
+    host enqueues the calls ahead of the card and the result is the card's
+    time alone (when ``iters`` calls take the host less than the spin)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_ms_cold(fn, iters: int) -> float:
+    """Mean device time of ``fn`` with L2 flushed before each call (a 64 MB
+    write between the calls, outside the timed span), the stream held as in
+    :func:`cuda_ms` with ``hold=True``."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
+    for i, (start, end) in enumerate(events):
+        flush.fill_(i)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
 def card_line() -> str:

@@ -104,7 +104,9 @@ def both(state):
     out["j_cand"] = jact.index_candidates(jat, J(state["T_inv"]), jt, jcam, jp)
     out["t_cand"] = tact.index_candidates(tat, T(state["T_inv"]), state["time"], cam, tp)
     out["j_index"] = jact.index_active(jat, J(state["T_inv"]), jt, jcam, jp)
-    out["t_index"] = tact.index_active(tat, T(state["T_inv"]), state["time"], cam, tp)
+    out["t_index"] = tact.index_active(tat, T(state["T_inv"]), state["time"], cam, tp,
+                                       tact.valid_prefix(out["t_plan"][1],
+                                                         out["t_plan"][0].shape[0], BLOCK))
     out["j_assoc"] = jact.associate_active(
         J(state["depth"]), J(state["rgb"]), J(state["sem"]), out["j_index"], jat,
         J(state["pose"]), J(state["T_inv"]), jt, jcam, jp)

@@ -14,13 +14,18 @@ import pytest
 import torch
 
 from surfelmapping_tpu_torch.config import CameraIntrinsics, MapConfig, PipelineParams
-from surfelmapping_tpu_torch.io.synthetic import SyntheticScene, kitti_cam, tiny_cam
+from surfelmapping_tpu_torch.io.synthetic import (STENCIL_CASES, SyntheticScene, kitti_cam,
+                                                  stencil_frame, tiny_cam)
 from surfelmapping_tpu_torch.ops import preprocess_stencil as k2
 from surfelmapping_tpu_torch.ops import zbuf as k1
 from surfelmapping_tpu_torch.ops import zbuf_outres as outres
 from surfelmapping_tpu_torch.ops.index_map import INT32_MAX
-from surfelmapping_tpu_torch.ops.preprocess import metricize_depth, stencil_chain_plain
+from surfelmapping_tpu_torch.ops import frame_surfels as fs
+from surfelmapping_tpu_torch.ops.colors import unit_rgb
+from surfelmapping_tpu_torch.ops.preprocess import (metricize_depth, remove_movings,
+                                                    stencil_chain_plain)
 from surfelmapping_tpu_torch.ops.splat import render_view
+from surfelmapping_tpu_torch.ops.transforms import compose, invert_se3
 from surfelmapping_tpu_torch.pipeline import SurfelMapper
 
 pytestmark = pytest.mark.gpu
@@ -51,6 +56,29 @@ def _zbuf_case(name, seed=0):
     return zkey, fpix, P, nv
 
 
+@pytest.mark.parametrize("form", ["none", "zero", "mid", "all", "misaligned"])
+def test_zbuffer_kernel_n_valid_and_packed_words(form, cuda):
+    """K1 with a 0-d n_valid tensor (0, mid, A) or none: one launch, exact
+    packed words, strided key and id views; a misaligned view of the
+    candidates takes the kernel's 4-byte loads."""
+    zkey, fpix, P, _ = _zbuf_case("kitti")
+    A = zkey.shape[0]
+    zk, fp = torch.from_numpy(zkey).to(cuda), torch.from_numpy(fpix).to(cuda)
+    nv = {"none": A, "zero": 0, "mid": 700_001, "all": A, "misaligned": 5}[form]
+    n_valid = None if form == "none" else torch.tensor(nv, dtype=torch.int32, device=cuda)
+    if form == "misaligned":
+        zk, fp = (torch.cat([t[:1], t])[1:] for t in (zk, fp))
+        assert zk.data_ptr() % 16 and fp.data_ptr() % 16
+    before = k1.KERNEL.launches
+    packed = k1.zbuffer_argmin_packed(zk, fp, P, n_valid)
+    assert k1.KERNEL.launches == before + 1
+    zr, ir = k1.zbuffer_argmin_plain(zk, fp, P, torch.arange(A, device=cuda) < nv)
+    assert torch.equal(packed, (zr.long() << 32) | ir.long())
+    zb, ib = k1.key_id_views(packed)
+    assert torch.equal(zb, zr) and torch.equal(ib, ir) and zb.stride() == (2,)
+    assert int((ib != INT32_MAX).sum()) == (0 if nv == 0 else int((ir != INT32_MAX).sum()))
+
+
 @pytest.mark.parametrize("name", ["random", "ties", "prefix", "kitti"])
 def test_zbuffer_kernel_matches_plain(name, cuda):
     zkey, fpix, P, nv = _zbuf_case(name)
@@ -71,30 +99,16 @@ def test_zbuffer_wrapper_rejects_bad_inputs(cuda):
         k1.zbuffer_argmin(zk, zk.int(), 4, torch.ones(8, dtype=torch.bool, device=cuda))
 
 
-def _stencil_frame(H, W, rng):
-    y, x = np.mgrid[0:H, 0:W].astype(np.float32)
-    depth = 5.0 + 4.0 * np.sin(x / 37.0) + 0.002 * y * x / W
-    depth[:, W // 2 :] += 3.0
-    depth[rng.random((H, W)) < 0.03] = 0.0
-    depth[rng.random((H, W)) < 0.01] = 150.0
-    depth[rng.random((H, W)) < 0.01] = 0.5
-    sem = np.zeros((H, W), np.int32)
-    sem[:, : W // 3] = 1
-    sem[H // 2 :, :] += 2
-    sem[: H // 8, 2 * W // 3 :] = 10
-    sem[rng.random((H, W)) < 0.01] = 11
-    return depth.astype(np.float32), sem
-
-
-@pytest.mark.parametrize("H,W,border", [(70, 200, 16.0), (37, 200, 0.0), (370, 1226, 80.0)])
-def test_stencil_kernel_matches_plain(H, W, border, cuda):
+@pytest.mark.parametrize("H,W,border,radius,cls", STENCIL_CASES)
+def test_stencil_kernel_matches_plain(H, W, border, radius, cls, cuda):
     cam = CameraIntrinsics(fx=100.0, fy=100.0, cx=W / 2, cy=H / 2, width=W, height=H)
-    params = PipelineParams(stereo_border=border)
-    depth, sem = _stencil_frame(H, W, np.random.default_rng(0))
+    params = PipelineParams(stereo_border=border, smooth_radius=radius)
+    depth, sem = stencil_frame(H, W, np.random.default_rng(0), cls)
     metric, semantic = torch.from_numpy(depth).to(cuda), torch.from_numpy(sem).to(cuda)
     got = k2.preprocess_stencil(metric, semantic, cam, params)
     want = stencil_chain_plain(metric, semantic, cam, params)
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert torch.equal(got, want)
+    assert 0.05 < float((want > 0).float().mean()) < 1.0
 
 
 def test_stencil_kernel_on_a_synthetic_kitti_frame(cuda):
@@ -104,8 +118,46 @@ def test_stencil_kernel_on_a_synthetic_kitti_frame(cuda):
     semantic = torch.from_numpy(sem.astype(np.int32)).to(cuda)
     got = k2.preprocess_stencil(metric, semantic, cam, params)
     want = stencil_chain_plain(metric, semantic, cam, params)
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert torch.equal(got, want)
     assert float((got > 0).float().mean()) > 0.05
+
+
+def _fusion_stage(stage, dev):
+    """One stage of the fusion path on ``dev`` from one synthetic KITTI
+    frame; returns its output tensors on the CPU."""
+    cam, params = kitti_cam(), PipelineParams()
+    scene = SyntheticScene(cam, step=0.8)
+    rgb, depth, sem, pose = scene.frame(5)
+    last_pose = torch.from_numpy(scene.frame(4)[3]).to(dev)
+    metric = metricize_depth(torch.from_numpy(depth.astype(np.int32)).to(dev), cam, params)
+    if stage == "metricize_depth":
+        out = (metric,)
+    elif stage in ("backproject", "central_normals"):
+        out = getattr(fs, stage)(metric, cam)
+    elif stage == "surfel_radius":
+        nz = fs.central_normals(metric, cam)[2]
+        out = (fs.surfel_radius(metric, nz, cam),)
+    elif stage == "ray_geometry":
+        out = fs.ray_geometry(cam, dev)
+    elif stage == "remove_movings":
+        semantic = torch.from_numpy(sem.astype(np.int32)).to(dev)
+        filtered = stencil_chain_plain(metric, semantic, cam, params)
+        T = compose(invert_se3(last_pose), torch.from_numpy(pose).to(dev))
+        out = (remove_movings(filtered, semantic, filtered.roll(3, 1), T, cam, params), T)
+    else:
+        assert stage == "unit_rgb"
+        out = (unit_rgb(torch.from_numpy(rgb).to(dev)),)
+    return [t.cpu() for t in out]
+
+
+@pytest.mark.parametrize("stage", ["metricize_depth", "backproject", "central_normals",
+                                   "surfel_radius", "ray_geometry", "remove_movings",
+                                   "unit_rgb"])
+def test_fusion_stage_on_the_card_equals_the_cpu(stage, cuda):
+    """Divisions by device tensors and correctly rounded square roots: the
+    card's fusion stages equal the CPU's bit for bit."""
+    for got, want in zip(_fusion_stage(stage, cuda), _fusion_stage(stage, "cpu")):
+        assert torch.equal(got, want), (stage, int((got != want).sum()))
 
 
 def test_main_path_on_the_card_matches_the_cpu(cuda):

@@ -16,6 +16,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from surfelmapping_tpu.ops.pallas_zbuf import zbuffer_argmin as jax_zbuffer_argmin
 from surfelmapping_tpu.ops.pallas_zbuf import zbuffer_argmin_auto
 from surfelmapping_tpu_torch.ops import zbuf, zbuf_outres
 from surfelmapping_tpu_torch.ops.index_map import INT32_MAX
@@ -79,6 +80,34 @@ def test_zbuffer_matches_jax(name):
         empties[[13, 99]] = False
         assert (zb.numpy()[empties] == INT32_MAX).all()
         assert (ib.numpy()[empties] == INT32_MAX).all()
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_zbuffer_n_valid_and_packed_words_match_the_jax_kernel(name):
+    """The plain version with a 0-d ``n_valid`` tensor, and the packed
+    (key << 32) | id words with their strided key and id views, against the
+    TPU kernel in interpret mode with the same ``n_valid``."""
+    zkey, fpix, P, nv = _case(name)
+    zr, ir = jax_zbuffer_argmin(jnp.asarray(zkey), jnp.asarray(fpix), P, interpret=True,
+                                n_valid=jnp.int32(nv))
+    zr, ir = np.asarray(zr), np.asarray(ir)
+    zk, fp = torch.from_numpy(zkey), torch.from_numpy(fpix)
+    n_valid = torch.tensor(nv, dtype=torch.int32)
+    zp, ip = zbuf.zbuffer_argmin_plain(zk, fp, P, n_valid)
+    np.testing.assert_array_equal(zp.numpy(), zr)
+    np.testing.assert_array_equal(ip.numpy(), ir)
+    packed = zbuf.zbuffer_argmin_packed(zk, fp, P, n_valid)
+    assert packed.dtype == torch.int64 and packed.shape == (P,)
+    np.testing.assert_array_equal(packed.numpy(),
+                                  (zr.astype(np.int64) << 32) | ir.astype(np.int64))
+    zb, ib = zbuf.key_id_views(packed)
+    assert zb.stride() == ib.stride() == (2,)
+    assert ib.data_ptr() == packed.data_ptr() and zb.data_ptr() == packed.data_ptr() + 4
+    np.testing.assert_array_equal(zb.numpy(), zr)
+    np.testing.assert_array_equal(ib.numpy(), ir)
+    for valid in (n_valid, torch.arange(zkey.shape[0]) < nv):  # both forms, same views
+        zv, iv = zbuf.zbuffer_argmin(zk, fp, P, valid)
+        assert torch.equal(zv, zb) and torch.equal(iv, ib)
 
 
 def test_candidates_past_the_prefix_do_not_exist():
