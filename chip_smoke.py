@@ -22,7 +22,8 @@ Phases, each printed as one JSON line:
            stereo borders 0 and 80, one class everywhere, the class INT32_MIN
   small    the main path on a 128x96 camera, on the card vs on the CPU
            (plain versions): identical per-frame stats, every map column
-           bit for bit
+           bit for bit; the pose math (compose, invert_se3, transforms.acos)
+           bit for bit on random inputs, beside the torch ops it replaced
   main     the main path at KITTI resolution (1226x370): 100 synthetic frames
            through SurfelMapper.process_frame at bench.py's operating point,
            frames/s per window, kernel launch counts, map checks
@@ -38,8 +39,19 @@ Phases, each printed as one JSON line:
            mapping pose vs that input frame
   probes   the probe entry points (tools.probe_pallas_zbuf,
            tools.probe_zbuf_variants), which run P1 and P2
-Each path (main, render, probes) is driven with every launch count set to 0
-just before it and read just after.  Kernel times are by CUDA events
+  small_icp  tracking on a 128x96 camera, on the card vs on the CPU (plain
+           versions) from the same map and window: refine_pose and
+           refine_window within 1e-5 m and 1e-5 rad, inliers within 0.1%
+  icp_ba   the tracking path at KITTI resolution through build_map's Tracker,
+           as the JAX package's experiment ran it (tools/record_parity.py):
+           40 frames of the box-corridor scene with a 0.02 m/frame random
+           walk on the input poses (seed 0), ICP alone and ICP + BA (window 5,
+           odometry weight 1e4); ATE of the input poses, of ICP and of
+           ICP+BA, frames/s, inliers, K1 launches per tracked frame
+  icp_holds  K1 vs its plain version on an ICP iteration's own candidates
+           from the icp_ba map (exact)
+Each path (main, render, probes, icp_ba) is driven with every launch count
+set to 0 just before it and read just after.  Kernel times are by CUDA events
 (tools/timing.py), warm in L2: ``ms`` and ``library_ms`` over calls issued
 back to back (the larger of the host's and the card's time per call);
 ``ms_device`` and ``library_ms_device`` with the host's launches queued
@@ -79,17 +91,20 @@ def emit(phase: str, **kv) -> None:
     print(json.dumps({"phase": phase, **kv}), flush=True)
 
 
-def device_launches(fn) -> int:
-    """Kernels that one call of ``fn`` puts on the card (torch.profiler)."""
+def device_launches(fn, calls: int = 8) -> int:
+    """Kernels that one call of ``fn`` puts on the card: torch.profiler's
+    count over ``calls`` calls, per call, rounded (a trace now and then
+    drops a kernel of a single call)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    return sum(e.count for e in prof.key_averages() if e.device_type == cuda)
+    return round(sum(e.count for e in prof.key_averages() if e.device_type == cuda) / calls)
 
 
 def k1_case(dev, P: int, A: int, invalid: float):
@@ -274,20 +289,116 @@ def phase_small(dev) -> None:
         if not torch.equal(a.column(k)[:n].cpu(), b.column(k)[:n]):
             raise AssertionError(f"small: column {k} differs on "
                                  f"{int((a.column(k)[:n].cpu() != b.column(k)[:n]).sum())} surfels")
+    diffs = last_bit_differences(dev)
     emit("small", frames=5, count=n, stats_equal=True, map_bit_equal=True,
-         last_bit_differences=last_bit_differences(dev))
+         last_bit_differences=diffs)
+    port_ops = ("transforms.acos of 2^20", "compose of 200", "invert_se3 of 200")
+    if any(diffs[k] for k in port_ops):
+        raise AssertionError(f"small: the port's pose math differs card vs CPU: {diffs}")
+
+
+def pose_gap(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
+    """(largest translation difference in m, largest rotation angle in rad)
+    between two pose stacks; the angle from the skew part of Ra^T Rb."""
+    a, b = a.cpu().double(), b.cpu().double()
+    dR = a[..., :3, :3].transpose(-1, -2) @ b[..., :3, :3]
+    skew = torch.stack([dR[..., 2, 1] - dR[..., 1, 2], dR[..., 0, 2] - dR[..., 2, 0],
+                        dR[..., 1, 0] - dR[..., 0, 1]], dim=-1) / 2
+    return (float((a[..., :3, 3] - b[..., :3, 3]).abs().max()),
+            float(torch.asin(torch.clamp(skew.norm(dim=-1), max=1.0)).max()))
+
+
+def phase_small_icp(dev) -> None:
+    """Tracking on a 128x96 camera: the same map (fused on the CPU) and the
+    same window on the card and on the CPU."""
+    from surfelmapping_tpu_torch import ba, convert, icp
+    from surfelmapping_tpu_torch.config import MapConfig, PipelineParams
+    from surfelmapping_tpu_torch.io.synthetic import SyntheticScene, tiny_cam
+    from surfelmapping_tpu_torch.ops.active import table_from_map
+    from surfelmapping_tpu_torch.pipeline import SurfelMapper
+
+    # tests/test_ba.py's scene: fronto-parallel boxes; no stereo border, so
+    # the whole 128-px width ingests
+    cam, params = tiny_cam(128, 96), PipelineParams(fuse_thresh_factor=0.05, stereo_border=0.0)
+    scene = SyntheticScene(cam, step=0.4, car_center=(4.5, 0.8, 13.0), extra_boxes=(
+        ((-4.0, 0.6, 11.0), (1.0, 1.0, 1.5)), ((0.5, 0.7, 18.0), (1.2, 0.9, 1.0)),
+        ((-2.0, 0.4, 24.0), (1.0, 1.2, 1.0))))
+    mapper = SurfelMapper(cam, params, MapConfig(capacity=1 << 16), device="cpu")
+    for i in range(5):
+        mapper.process_frame(*scene.frame(i))
+    smap = mapper.smap
+
+    def depth_on(d, dv, s):
+        return icp.preprocess_for_icp(torch.from_numpy(d.astype(np.int32)).to(dv),
+                                      torch.from_numpy(s.astype(np.int32)).to(dv), cam, params)
+
+    _, d, s, T = scene.frame(5)
+    T0 = torch.from_numpy(T.copy())
+    T0[0, 3] += 0.05
+    T0[2, 3] -= 0.08
+    icp_out = []
+    for dv in (dev, "cpu"):
+        pose, diag = icp.refine_pose(smap.to(dv), depth_on(d, dv, s), T0.to(dv), cam, params)
+        icp_out.append((pose, int(diag["inliers"])))
+    win = ba.WindowedBA(cam, params, window=4, stride=2, device="cpu")
+    at = table_from_map(smap)
+    rng = np.random.default_rng(SEED)
+    for i in range(2, 6):
+        _, d, s, T = scene.frame(i)
+        T = T.copy()
+        T[2, 3] += rng.normal(0, 0.03)
+        win.push(depth_on(d, "cpu", s), T, at=at, time=float(i))
+    arrays, nv = convert.window_to_numpy(win.win)
+    ba_out = []
+    for dv in (dev, "cpu"):
+        got, diag = ba.refine_window(convert.window_from_numpy(arrays, nv, dv),
+                                     table_from_map(smap.to(dv)), 5.0, cam, params, stride=2)
+        ba_out.append((got.poses, int(diag["inliers"])))
+    r = {}
+    for name, ((card, n_card), (cpu, n_cpu)) in (("refine_pose", icp_out),
+                                                 ("refine_window", ba_out)):
+        t_gap, r_gap = pose_gap(card, cpu)
+        r[name] = dict(translation_gap_m=t_gap, rotation_gap_rad=r_gap, inliers_card=n_card,
+                       inliers_cpu=n_cpu)
+        if not (t_gap < 1e-5 and r_gap < 1e-5 and n_cpu > 100
+                and abs(n_card - n_cpu) <= 0.001 * n_cpu):
+            raise AssertionError(f"small_icp: {name} card vs CPU out of tolerance {r[name]}")
+    emit("small_icp", map_surfels=int(smap.count), **r)
+
+
+def random_poses(n: int, rng) -> torch.Tensor:
+    """n random rigid poses (orthonormal rotations, translations in +-20 m)."""
+    out = np.zeros((n, 4, 4), np.float32)
+    for T in out:
+        q, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+        q[:, 0] *= np.sign(np.linalg.det(q))
+        T[:3, :3], T[:3, 3], T[3, 3] = q, rng.uniform(-20, 20, 3), 1.0
+    return torch.from_numpy(out)
 
 
 def last_bit_differences(dev) -> dict:
-    """The ops that ROADMAP Queue 3 names as rounding differently on the
-    card and the CPU, on random inputs (seed 0): elements that differ."""
+    """Card vs CPU on random inputs (seed 0): the pose products and the
+    arccos of the port (transforms.compose/invert_se3 as FMA chains,
+    transforms.acos in float64), which must agree in every bit, beside the
+    torch ops they replaced (ROADMAP Queue 3): elements or products that
+    differ."""
+    from surfelmapping_tpu_torch.ops import transforms as tf
+
     rng = np.random.default_rng(SEED)
     x = torch.from_numpy(rng.uniform(-1.0, 1.0, 1 << 20).astype(np.float32))
-    mats = torch.from_numpy(rng.standard_normal((200, 2, 4, 4)).astype(np.float32))
-    card = torch.stack([torch.matmul(a.to(dev), b.to(dev)).cpu() for a, b in mats])
-    cpu = torch.stack([torch.matmul(a, b) for a, b in mats])
-    return {"arccos of 2^20": int((torch.arccos(x.to(dev)).cpu() != torch.arccos(x)).sum()),
-            "4x4 matmul, of 200 products": int((card != cpu).flatten(1).any(1).sum())}
+    A, B = random_poses(200, rng), random_poses(200, rng)
+
+    def per_product(fn, *args):
+        card = torch.stack([fn(*(a.to(dev) for a in t)).cpu() for t in zip(*args)])
+        cpu = torch.stack([fn(*t) for t in zip(*args)])
+        return int((card != cpu).flatten(1).any(1).sum())
+
+    return {"transforms.acos of 2^20": int((tf.acos(x.to(dev)).cpu() != tf.acos(x)).sum()),
+            "compose of 200": per_product(tf.compose, A, B),
+            "invert_se3 of 200": per_product(tf.invert_se3, A),
+            "torch.arccos of 2^20 (replaced)":
+                int((torch.arccos(x.to(dev)).cpu() != torch.arccos(x)).sum()),
+            "torch.matmul of 200 (replaced)": per_product(torch.matmul, A, B)}
 
 
 def map_checks(smap, scene) -> dict:
@@ -593,6 +704,90 @@ def phase_probes(counters) -> dict:
     return launches
 
 
+def phase_icp_ba(dev, counters, smi: str) -> tuple:
+    """The tracking path through build_map's Tracker, as the JAX package's
+    KITTI-resolution ICP/BA experiment ran it (tools/record_parity.py): 40
+    frames of its box-corridor scene, fuse_thresh_factor 0.05, capacity
+    1 << 21, a 0.02 m/frame random walk on the input poses (seed 0); ICP
+    alone, then ICP + BA (window 5, odometry weight 1e4).  The frames are
+    ray-cast on the host before the clock starts."""
+    from surfelmapping_tpu_torch.build_map import RandomWalkNoise, Tracker
+    from surfelmapping_tpu_torch.config import MapConfig, PipelineParams
+    from surfelmapping_tpu_torch.io.synthetic import corridor_scene, kitti_cam
+    from surfelmapping_tpu_torch.metrics import absolute_trajectory_error
+    from surfelmapping_tpu_torch.pipeline import SurfelMapper
+
+    cam, params = kitti_cam(), PipelineParams(fuse_thresh_factor=0.05)
+    scene = corridor_scene(cam)
+    frames = [scene.frame(i) for i in range(40)]
+    noise = RandomWalkNoise(0.02)
+    noisy = [noise(f[3]) for f in frames]
+    gt = np.stack([f[3] for f in frames])
+    res = {"resolution": f"{cam.width}x{cam.height}", "frames": len(frames),
+           "input_ate": absolute_trajectory_error(np.stack(noisy), gt)}
+    launches, last = {}, None
+    for name, window in (("icp", 0), ("icp_ba", 5)):
+        mapper = SurfelMapper(cam, params, MapConfig(capacity=1 << 21))
+        tracker = Tracker(mapper, icp=True, ba_window=window, ba_odo_weight=1e4)
+        torch.cuda.synchronize()
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        poses = [tracker.step(i, rgb, depth, sem, noisy[i])
+                 for i, (rgb, depth, sem, _) in enumerate(frames)]
+        _ = mapper.count  # sync: the last frame's fusion is done
+        dt = time.perf_counter() - t0
+        counts = read_counts(counters)
+        tracked = len(tracker.inliers)
+        k1 = counts["zbuffer_argmin"]
+        r = dict(ate=absolute_trajectory_error(np.stack(poses), gt), frames_per_s=len(frames) / dt,
+                 seconds=dt, tracked_frames=tracked, k1_launches=k1,
+                 k1_launches_per_tracked_frame=k1 / max(tracked, 1), launches=counts,
+                 live_surfels=mapper.count)
+        for key in ("icp", "ba"):
+            seen = [x[key] for x in tracker.inliers if key in x]
+            if seen:
+                r[f"mean_{key}_inliers"] = float(np.mean(seen))
+        res[name] = r
+        launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+        last = (mapper, noisy[-1])
+    res["card"] = smi
+    emit("icp_ba", **res)
+    limit = 0.5 * res["input_ate"]["rmse"]
+    for name in ("icp", "icp_ba"):
+        r = res[name]
+        if not (np.isfinite(r["ate"]["rmse"]) and r["ate"]["rmse"] <= limit):
+            raise AssertionError(f"icp_ba: {name} ATE rmse {r['ate']['rmse']} over {limit}")
+        if r["k1_launches"] < 5 * r["tracked_frames"] or r["tracked_frames"] < 30:
+            raise AssertionError(f"icp_ba: {name}: K1 launched {r['k1_launches']} times for "
+                                 f"{r['tracked_frames']} tracked frames")
+    return launches, last
+
+
+def phase_icp_holds(dev, mapper, pose, zbuf_mod) -> None:
+    """K1 vs its plain version on the candidates of the first ICP iteration
+    of the icp_ba run's last frame: the table gathered at that frame's
+    input pose, with the time and n_valid that refine_pose takes."""
+    from surfelmapping_tpu_torch.ops.active import index_candidates
+    from surfelmapping_tpu_torch.ops.transforms import invert_se3
+
+    cam, params = mapper.cam, mapper.params
+    pose = torch.from_numpy(pose).to(dev)
+    at = mapper.active_table(pose)
+    n_valid = at.slot_valid.sum(dtype=torch.int32)
+    t = torch.max(torch.where(at.slot_valid, at.last_t, 0.0))
+    zkey, fpix = index_candidates(at, invert_se3(pose), t, cam, params)
+    P = cam.height * cam.width
+    zb, ib = zbuf_mod.zbuffer_argmin(zkey, fpix, P, n_valid)
+    zr, ir = zbuf_mod.zbuffer_argmin_plain(zkey, fpix, P, at.slot_valid)
+    if not (torch.equal(zb, zr) and torch.equal(ib, ir)):
+        raise AssertionError("icp_holds: k1 differs on the ICP iteration's candidates")
+    kernel = lambda: zbuf_mod.zbuffer_argmin_packed(zkey, fpix, P, n_valid)  # noqa: E731
+    emit("icp_holds", k1_table_slots=at.size, k1_n_valid=int(n_valid),
+         k1_pixels_hit=int((ib != INT32_MAX).sum()), k1_exact=True,
+         k1_ms=cuda_ms(kernel, 50), k1_ms_device=cuda_ms(kernel, 50, hold=True),
+         k1_plain_ms=cuda_ms(lambda: zbuf_mod.zbuffer_argmin_plain(zkey, fpix, P, n_valid), 20))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -628,12 +823,15 @@ def main() -> int:
     k2 = phase_k2(dev, cam, params)
     probe = phase_outres(dev, outres_mod)
     phase_small(dev)
+    phase_small_icp(dev)
     mapper, scene, frames, fusion = phase_main(dev, cam, params, counters, smi)
     phase_holds(dev, mapper, frames, zbuf_mod)
     views, per_view, render = phase_render(dev, mapper, scene, counters, smi)
     phase_render_holds(dev, mapper, scene, views[0], per_view[0]["n_active_blocks"], zbuf_mod)
     probes = phase_probes(counters)
-    emit("paths", launches=dict(main=fusion, render=render, probes=probes))
+    tracking, (icp_mapper, icp_pose) = phase_icp_ba(dev, counters, smi)
+    phase_icp_holds(dev, icp_mapper, icp_pose, zbuf_mod)
+    emit("paths", launches=dict(main=fusion, render=render, probes=probes, icp_ba=tracking))
     p1, p2 = probe["pallas_zbuf_453632"], probe["outres_1814480"]
 
     k1i, k1r = k1["index"], k1["render"]
@@ -641,7 +839,8 @@ def main() -> int:
         # index map's shape first; the renderer's shape in the *_render keys
         dict(name="zbuffer_argmin", route="cuda", source=zbuf_mod.KERNEL.repo_source,
              replaces="surfelmapping_tpu/ops/pallas_zbuf.py:188",
-             launches=fusion["zbuffer_argmin"] + render["zbuffer_argmin"],
+             launches=(fusion["zbuffer_argmin"] + render["zbuffer_argmin"]
+                       + tracking["zbuffer_argmin"]),
              max_abs_err=max(k1i["max_abs_err"], k1r["max_abs_err"]),
              ms=k1i["ms"], plain_ms=k1i["plain_ms"], bound_ms=k1i["bound_ms"],
              bound_by="bytes", library_ms=k1i["library_ms"], ms_device=k1i["ms_device"],

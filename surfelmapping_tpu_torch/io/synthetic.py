@@ -126,6 +126,16 @@ class SyntheticScene:
         return rgb, depth_mm, sem, T
 
 
+def corridor_scene(cam: CameraIntrinsics) -> SyntheticScene:
+    """The JAX package's tracking experiment scene (tools/record_parity.py:
+    101-107): a corridor of 12 boxes alternating left and right along the
+    trajectory, 0.5 m per frame.  The bare ground-and-walls scene leaves the
+    forward translation unconstrained, and ICP drifts along z there."""
+    boxes = tuple((((-4.0 if i % 2 else 4.5), 0.6, 6.0 + 5.0 * i), (1.0, 1.0, 1.2))
+                  for i in range(12))
+    return SyntheticScene(cam, step=0.5, extra_boxes=boxes)
+
+
 def tiny_cam(width: int = 128, height: int = 96) -> CameraIntrinsics:
     return CameraIntrinsics(
         fx=100.0, fy=100.0, cx=width / 2.0, cy=height / 2.0,

@@ -1,5 +1,5 @@
-"""Parity metrics: rendered-image PSNR (counterpart of
-surfelmapping_tpu/metrics.py:13-48).  The trajectory error comes with ICP.
+"""Parity metrics: rendered-image PSNR and trajectory error (counterpart
+of surfelmapping_tpu/metrics.py).
 """
 
 from __future__ import annotations
@@ -42,3 +42,15 @@ def render_vs_frame_psnr(mapper, rgb_frame: np.ndarray, pose: np.ndarray,
     if frame.max() > 1.5:
         frame = frame / 255.0
     return psnr(rendered, frame, hits), float(hits.mean())
+
+
+def absolute_trajectory_error(est: np.ndarray, gt: np.ndarray) -> dict:
+    """ATE between pose sequences [N,4,4] (translation RMSE/mean/max, m)."""
+    est = np.asarray(est)
+    gt = np.asarray(gt)
+    d = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=1)
+    return {
+        "rmse": float(np.sqrt((d ** 2).mean())),
+        "mean": float(d.mean()),
+        "max": float(d.max()),
+    }

@@ -34,7 +34,7 @@ from ..config import CameraIntrinsics, PipelineParams
 from ..surfels import SurfelMap
 from .frame_surfels import association_candidates, ray_geometry
 from .index_map import INT32_MAX, _depth_key
-from .transforms import ieee_sqrt, transform_planar
+from .transforms import acos, ieee_sqrt, transform_planar
 from .zbuf import zbuffer_argmin
 
 
@@ -350,7 +350,7 @@ def _angle_between(ax, ay, az, bx, by, bz) -> torch.Tensor:
     na = ieee_sqrt(ax * ax + ay * ay + az * az)
     nb = ieee_sqrt(bx * bx + by * by + bz * bz)
     cosv = dot / torch.clamp(na * nb, min=1e-12)
-    return torch.arccos(torch.clamp(cosv, -1.0, 1.0))
+    return acos(torch.clamp(cosv, -1.0, 1.0))
 
 
 # packed row layout of the association gather (all as int32 bits)
@@ -536,3 +536,30 @@ def fuse_append_map(
     appended = torch.where(fits, n_new, 0)
     smap.count = smap.count + appended
     return smap, n_new - appended
+
+
+# ---------------------------------------------------------------------------
+# A whole map viewed as a table
+# ---------------------------------------------------------------------------
+
+def table_from_map(smap: SurfelMap) -> ActiveTable:
+    """View a map directly as an ActiveTable whose active positions ARE the
+    map slots (spare excluded): the valid slots are the prefix below
+    ``count``, so the z-buffer's n_valid is ``count``."""
+    ids = torch.arange(smap.capacity, device=smap.device)
+    return ActiveTable(
+        **{t: smap.column(m) for t, m in _TABLE_COLS.items()},
+        global_id=ids,
+        slot_valid=ids < smap.count,
+        blk=torch.zeros((0,), dtype=torch.int64, device=smap.device),
+    )
+
+
+def map_from_table(at: ActiveTable, count: torch.Tensor) -> SurfelMap:
+    """Inverse of :func:`table_from_map` (same slot addressing; the map gets
+    a fresh spare slot)."""
+    def col(t):
+        return torch.cat([t, t.new_zeros(1)])
+
+    return SurfelMap(**{m: col(getattr(at, t)) for t, m in _TABLE_COLS.items()},
+                     count=count)

@@ -90,12 +90,12 @@ def test_transforms_match_jax(rng):
     got = transforms.normalize_planar(*(torch.from_numpy(v) for v in (x, y, z)))
     for w, g in zip(want, got):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6)
-    # 4x4 products: summation order may differ, so float32 rounding
-    np.testing.assert_allclose(transforms.invert_se3(torch.from_numpy(A)).numpy(),
-                               np.asarray(jtf.invert_se3(jnp.asarray(A))), rtol=1e-6, atol=1e-5)
-    np.testing.assert_allclose(
+    # 4x4 products: the same k-ordered FMA chain as XLA's on the CPU
+    np.testing.assert_array_equal(transforms.invert_se3(torch.from_numpy(A)).numpy(),
+                                  np.asarray(jtf.invert_se3(jnp.asarray(A))))
+    np.testing.assert_array_equal(
         transforms.compose(torch.from_numpy(A), torch.from_numpy(B)).numpy(),
-        np.asarray(jtf.compose(jnp.asarray(A), jnp.asarray(B))), rtol=1e-6, atol=1e-5)
+        np.asarray(jtf.compose(jnp.asarray(A), jnp.asarray(B))))
 
 
 def _expected_jax_words(port_words: np.ndarray) -> np.ndarray:
@@ -178,12 +178,16 @@ def test_port_imports_no_jax():
     assert out[1] == "[]"
 
 
-@pytest.mark.parametrize("entry", ["SurfelMapper", "render_view", "load_map"])
+@pytest.mark.parametrize("entry", ["SurfelMapper", "render_view", "load_map", "ICPRefiner",
+                                   "WindowedBA", "build_map"])
 @pytest.mark.parametrize("device", [None, "cuda"])
 def test_entry_point_defaults_to_the_card(device, entry, tmp_path):
-    """The mapper, the renderer and the load-map CLI run on the card unless
-    asked for the CPU; without CUDA they raise rather than fall back."""
-    from surfelmapping_tpu_torch import load_map
+    """The mapper, the renderer, the trackers and the CLIs run on the card
+    unless asked for the CPU; without CUDA they raise rather than fall back."""
+    from surfelmapping_tpu_torch import build_map, load_map
+    from surfelmapping_tpu_torch.ba import WindowedBA
+    from surfelmapping_tpu_torch.config import PipelineParams
+    from surfelmapping_tpu_torch.icp import ICPRefiner
     from surfelmapping_tpu_torch.io.synthetic import tiny_cam
     from surfelmapping_tpu_torch.ops.splat import render_view
     from surfelmapping_tpu_torch.pipeline import SurfelMapper
@@ -197,10 +201,16 @@ def test_entry_point_defaults_to_the_card(device, entry, tmp_path):
         "load_map": lambda: load_map.main(
             [path, "--synthetic-cam", "small", "--num", "1", "--out", str(tmp_path / "novel")]
             + ([] if device is None else ["--device", device])),
+        "ICPRefiner": lambda: ICPRefiner(tiny_cam(), PipelineParams(), device=device).device,
+        "WindowedBA": lambda: WindowedBA(tiny_cam(), PipelineParams(), device=device).device,
+        "build_map": lambda: build_map.main(
+            ["--synthetic", "3", "--synthetic-cam", "small", "--icp", "--ba", "--capacity",
+             str(1 << 16), "--out", str(tmp_path / "m.bin")]
+            + ([] if device is None else ["--device", device])),
     }
     if torch.cuda.is_available():
         got = calls[entry]()
-        assert got == 0 if entry == "load_map" else got.type == "cuda"
+        assert got == 0 if entry.endswith("_map") else got.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             calls[entry]()

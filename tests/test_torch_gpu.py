@@ -25,6 +25,9 @@ from surfelmapping_tpu_torch.ops.colors import unit_rgb
 from surfelmapping_tpu_torch.ops.preprocess import (metricize_depth, remove_movings,
                                                     stencil_chain_plain)
 from surfelmapping_tpu_torch.ops.splat import render_view
+from surfelmapping_tpu_torch import ba, convert, icp
+from surfelmapping_tpu_torch.ops import transforms
+from surfelmapping_tpu_torch.ops.active import table_from_map
 from surfelmapping_tpu_torch.ops.transforms import compose, invert_se3
 from surfelmapping_tpu_torch.pipeline import SurfelMapper
 
@@ -240,3 +243,108 @@ def test_render_view_on_the_card_matches_the_cpu(cuda):
         for key in ("rgb", "semantic", "depth", "id", "n_active_blocks"):
             assert torch.equal(got[key].cpu(), want[key]), (method, key)
         assert float((want["id"] >= 0).float().mean()) > 0.03
+
+
+def _random_poses(n, seed=0):
+    rng = np.random.default_rng(seed)
+    out = np.zeros((n, 4, 4), np.float32)
+    for T in out:
+        q, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+        q[:, 0] *= np.sign(np.linalg.det(q))
+        T[:3, :3], T[:3, 3], T[3, 3] = q, rng.uniform(-20, 20, 3), 1.0
+    return torch.from_numpy(out)
+
+
+def test_pose_math_on_the_card_equals_the_cpu(cuda):
+    """The FMA-chain products, the float64 acos and the SE(3) maps built on
+    them give the same bits on the card as on the CPU."""
+    A, B = _random_poses(200, 0), _random_poses(200, 1)
+    for a, b in zip(A, B):
+        assert torch.equal(compose(a.to(cuda), b.to(cuda)).cpu(), compose(a, b))
+        assert torch.equal(invert_se3(a.to(cuda)).cpu(), invert_se3(a))
+    assert torch.equal(compose(A.to(cuda), B.to(cuda)).cpu(), compose(A, B))
+    x = torch.from_numpy(np.random.default_rng(2).uniform(-1, 1, 1 << 20).astype(np.float32))
+    assert torch.equal(transforms.acos(x.to(cuda)).cpu(), transforms.acos(x))
+    xi = torch.from_numpy(np.random.default_rng(3).normal(0, 0.3, (500, 6)).astype(np.float32))
+    for fn, arg in ((transforms.exp_se3, xi), (transforms.log_se3, A),
+                    (transforms.adjoint_se3, A)):
+        assert torch.equal(fn(arg.to(cuda)).cpu(), fn(arg)), fn.__name__
+
+
+def _tracking_case():
+    """A 5-frame CPU map of tests/test_ba.py's 128x96 scene (fronto-parallel
+    boxes; no stereo border, so the whole width ingests) and the scene."""
+    cam, params = tiny_cam(), PipelineParams(fuse_thresh_factor=0.05, stereo_border=0.0)
+    scene = SyntheticScene(cam, step=0.4, car_center=(4.5, 0.8, 13.0), extra_boxes=(
+        ((-4.0, 0.6, 11.0), (1.0, 1.0, 1.5)), ((0.5, 0.7, 18.0), (1.2, 0.9, 1.0)),
+        ((-2.0, 0.4, 24.0), (1.0, 1.2, 1.0))))
+    mapper = SurfelMapper(cam, params, MapConfig(capacity=1 << 16), device="cpu")
+    for i in range(5):
+        mapper.process_frame(*scene.frame(i))
+    return cam, params, scene, mapper.smap
+
+
+def _depth(dev, cam, params, d, s):
+    return icp.preprocess_for_icp(torch.from_numpy(d.astype(np.int32)).to(dev),
+                                  torch.from_numpy(s.astype(np.int32)).to(dev), cam, params)
+
+
+def _pose_gap(a, b):
+    """(max translation difference m, rotation angle rad) of two poses."""
+    a, b = a.cpu().double(), b.cpu().double()
+    dR = a[..., :3, :3].transpose(-1, -2) @ b[..., :3, :3]
+    skew = torch.stack([dR[..., 2, 1] - dR[..., 1, 2], dR[..., 0, 2] - dR[..., 2, 0],
+                        dR[..., 1, 0] - dR[..., 0, 1]], dim=-1) / 2
+    return (float((a[..., :3, 3] - b[..., :3, 3]).abs().max()),
+            float(torch.asin(torch.clamp(skew.norm(dim=-1), max=1.0)).max()))
+
+
+def test_icp_and_ba_on_the_card_match_the_cpu(cuda):
+    """refine_pose and refine_window on the card (K1) against the CPU's
+    plain versions on the same map and window: within 1e-5 m and 1e-5 rad,
+    inliers within 0.1%."""
+    cam, params, scene, smap = _tracking_case()
+    _, d, s, T = scene.frame(5)
+    T0 = torch.from_numpy(T.copy())
+    T0[0, 3] += 0.05
+    T0[2, 3] -= 0.08
+    out = []
+    for dev in (cuda, "cpu"):
+        n = k1.KERNEL.launches
+        pose, diag = icp.refine_pose(smap.to(dev), _depth(dev, cam, params, d, s), T0.to(dev),
+                                     cam, params)
+        out.append((pose, int(diag["inliers"]), k1.KERNEL.launches - n))
+    (pc, nc, lc), (pp, npu, lp) = out
+    assert (lc, lp) == (5, 0) and npu > 100
+    t_gap, r_gap = _pose_gap(pc, pp)
+    assert t_gap < 1e-5 and r_gap < 1e-5 and abs(nc - npu) <= 0.001 * npu
+
+    w = ba.WindowedBA(cam, params, window=4, stride=2, device="cpu")
+    at = table_from_map(smap)
+    rng = np.random.default_rng(0)
+    for i in range(2, 6):
+        _, d, s, T = scene.frame(i)
+        T = T.copy()
+        T[2, 3] += rng.normal(0, 0.03)
+        w.push(_depth("cpu", cam, params, d, s), T, at=at, time=float(i))
+    arrays, nv = convert.window_to_numpy(w.win)
+    res = []
+    for dev in (cuda, "cpu"):
+        win = convert.window_from_numpy(arrays, nv, dev)
+        got, diag = ba.refine_window(win, table_from_map(smap.to(dev)), 5.0, cam, params,
+                                     stride=2)
+        res.append((got.poses, int(diag["inliers"])))
+    (card_poses, card_in), (cpu_poses, cpu_in) = res
+    t_gap, r_gap = _pose_gap(card_poses, cpu_poses)
+    assert t_gap < 1e-5 and r_gap < 1e-5 and cpu_in > 100
+    assert abs(card_in - cpu_in) <= 0.001 * cpu_in
+
+
+def test_dropout_update_is_exactly_zero_on_the_card(cuda):
+    """A frame without depth: 0 inliers and the initial pose exactly."""
+    cam, params, scene, smap = _tracking_case()
+    _, d, s, T = scene.frame(5)
+    T0 = torch.from_numpy(T).to(cuda)
+    pose, diag = icp.refine_pose(smap.to(cuda), _depth(cuda, cam, params, np.zeros_like(d), s),
+                                 T0, cam, params)
+    assert int(diag["inliers"]) == 0 and torch.equal(pose, T0)
