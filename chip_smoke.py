@@ -49,9 +49,23 @@ Phases, each printed as one JSON line:
            odometry weight 1e4); ATE of the input poses, of ICP and of
            ICP+BA, frames/s, inliers, K1 launches per tracked frame
   icp_holds  K1 vs its plain version on an ICP iteration's own candidates
-           from the icp_ba map (exact)
-Each path (main, render, probes, icp_ba) is driven with every launch count
-set to 0 just before it and read just after.  Kernel times are by CUDA events
+           from the icp_ba map (exact), beside its bound and the library call
+  small_spade  the SPADE generator at ngf 16, crop 64, batch 2 (aspect 1.0
+           and 3.25, and the VAE path with a style image and from z = 0) on
+           the card vs the CPU from the same weights: the image before its
+           tanh within 1e-4 of its largest magnitude; the nearest resize
+           card vs CPU at every ratio the generator takes
+  spade    the SPADE serving chain at full width (ngf 64, seeded weights) on
+           the render phase's 20 novel views of the main map: render_view
+           (K1) -> u8 label -> spade_test.enhance_frame -> composite with the
+           render's semantic, at the KITTI inference geometry (crop 1248,
+           aspect 3.25: 384x1248) and the CLI default (crop 256: 256x256);
+           enhanced frames/s, the generator's card time per image beside its
+           float32 bound (FLOPs from the layer shapes), launches, memory,
+           the card's idle share and top kernels over 4 frames of the chain,
+           and the host ms of each step's profiler range
+Each path (main, render, probes, icp_ba, spade) is driven with every launch
+count set to 0 just before it and read just after.  Kernel times are by CUDA events
 (tools/timing.py), warm in L2: ``ms`` and ``library_ms`` over calls issued
 back to back (the larger of the host's and the card's time per call);
 ``ms_device`` and ``library_ms_device`` with the host's launches queued
@@ -68,6 +82,7 @@ import collections
 import contextlib
 import io
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -91,10 +106,18 @@ def emit(phase: str, **kv) -> None:
     print(json.dumps({"phase": phase, **kv}), flush=True)
 
 
-def device_launches(fn, calls: int = 8) -> int:
-    """Kernels that one call of ``fn`` puts on the card: torch.profiler's
-    count over ``calls`` calls, per call, rounded (a trace now and then
-    drops a kernel of a single call)."""
+def device_events(prof) -> list:
+    """The card's own events (kernels, copies, fills) of a torch.profiler
+    run, without the device side of the host's profiler ranges."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in prof.key_averages()
+            if e.device_type == cuda and not getattr(e, "is_user_annotation", False)]
+
+
+def device_profile(fn, calls: int = 8) -> tuple[int, float]:
+    """What one call of ``fn`` puts on the card: torch.profiler's count of
+    kernels over ``calls`` calls, per call, rounded (a trace now and then
+    drops a kernel of a single call), and their device ms per call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -103,8 +126,9 @@ def device_launches(fn, calls: int = 8) -> int:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    return round(sum(e.count for e in prof.key_averages() if e.device_type == cuda) / calls)
+    events = device_events(prof)
+    return (round(sum(e.count for e in events) / calls),
+            sum(e.self_device_time_total for e in events) / 1e3 / calls)
 
 
 def k1_case(dev, P: int, A: int, invalid: float):
@@ -148,7 +172,7 @@ def phase_k1(dev, zbuf_mod) -> dict:
                                      f"({int(zb[4242])}, {int(ib[4242])})")
         max_err = max(int((zb.long() - zr.long()).abs().max()),
                       int((ib.long() - ir.long()).abs().max()))
-        launches = device_launches(lambda: zbuf_mod.zbuffer_argmin_packed(zk, fp, P, n_valid))
+        launches = device_profile(lambda: zbuf_mod.zbuffer_argmin_packed(zk, fp, P, n_valid))[0]
 
         # library yardstick: one scatter_reduce_ of the packed (key << 32 | id)
         # of the candidates K1 scatters, selected here, outside the timing
@@ -782,10 +806,235 @@ def phase_icp_holds(dev, mapper, pose, zbuf_mod) -> None:
     if not (torch.equal(zb, zr) and torch.equal(ib, ir)):
         raise AssertionError("icp_holds: k1 differs on the ICP iteration's candidates")
     kernel = lambda: zbuf_mod.zbuffer_argmin_packed(zkey, fpix, P, n_valid)  # noqa: E731
-    emit("icp_holds", k1_table_slots=at.size, k1_n_valid=int(n_valid),
-         k1_pixels_hit=int((ib != INT32_MAX).sum()), k1_exact=True,
+    # the library call of phase_k1 on the candidates K1 scatters here
+    nv = int(n_valid)
+    ids = torch.arange(zkey.shape[0], device=dev)
+    sel = (ids < nv) & (zkey != INT32_MAX) & (fpix >= 0) & (fpix < P)
+    pix, vals = fpix[sel].long(), ((zkey.long() << 32) | ids)[sel]
+    empty = torch.full((P,), (INT32_MAX << 32) | INT32_MAX, dtype=torch.int64, device=dev)
+    library = lambda: empty.scatter_reduce(0, pix, vals, "amin")  # noqa: E731
+    if not torch.equal(library(), kernel()):
+        raise AssertionError("icp_holds: library yardstick disagrees")
+    emit("icp_holds", k1_table_slots=at.size, k1_n_valid=nv,
+         k1_pixels_hit=int((ib != INT32_MAX).sum()), k1_scattered=int(sel.sum()), k1_exact=True,
          k1_ms=cuda_ms(kernel, 50), k1_ms_device=cuda_ms(kernel, 50, hold=True),
-         k1_plain_ms=cuda_ms(lambda: zbuf_mod.zbuffer_argmin_plain(zkey, fpix, P, n_valid), 20))
+         k1_plain_ms=cuda_ms(lambda: zbuf_mod.zbuffer_argmin_plain(zkey, fpix, P, n_valid), 20),
+         k1_bound_ms=(8.0 * nv + 8.0 * P) / HBM_BYTES_PER_S * 1e3, k1_bound_by="bytes",
+         k1_library_ms=cuda_ms(library, 50), k1_library_ms_device=cuda_ms(library, 50, hold=True))
+
+
+def random_bn_stats(tree: dict, rng) -> None:
+    """Every BatchNorm_0 of a flax ``batch_stats`` tree to mean ~ N(0, 0.1)
+    and var ~ U(0.5, 2), in place."""
+    for k, v in tree.items():
+        if k == "BatchNorm_0":
+            v["mean"] = rng.normal(0, 0.1, v["mean"].shape).astype(np.float32)
+            v["var"] = rng.uniform(0.5, 2.0, v["var"].shape).astype(np.float32)
+        elif isinstance(v, dict):
+            random_bn_stats(v, rng)
+
+
+def phase_small_spade(dev) -> None:
+    """The generator at ngf 16, crop 64, batch 2 on the card and on the CPU
+    from the same converted weights (random running statistics, the init's
+    u): aspect 1.0 and 3.25 from labels off the generator's grid, and the
+    VAE path (encoder + fc_vae) with a style image and from z = 0.  The
+    image before its tanh must agree within 1e-4 of its largest magnitude,
+    so that a saturated tanh hides nothing.  Then the nearest resize card
+    vs CPU at every ratio the generator takes, here and at the spade
+    phase's geometries."""
+    from surfelmapping_tpu_torch.models.pix2pix import SpadeConfig, SpadeTrainer, init_variables
+    from surfelmapping_tpu_torch.models.spade import latent_hw, resize_nearest
+
+    rng = np.random.default_rng(SEED)
+    res = {}
+    for name, cfg, (H, W) in (
+            ("aspect_1.0", SpadeConfig(ngf=16, crop_size=64), (70, 70)),
+            ("aspect_3.25", SpadeConfig(ngf=16, crop_size=64, aspect_ratio=3.25), (40, 130)),
+            ("vae", SpadeConfig(ngf=16, ndf=16, crop_size=64, use_vae=True), (70, 70))):
+        v = init_variables(cfg, SEED)
+        random_bn_stats(v["batch_stats"], rng)
+        models = [SpadeTrainer(cfg, variables=v, device=d) for d in (dev, "cpu")]
+        label = torch.from_numpy(rng.uniform(-1, 1, (2, H, W, 3)).astype(np.float32))
+        style = torch.from_numpy(rng.uniform(-1, 1, (2, 90, 120, 3)).astype(np.float32))
+        cases = (("vae_style", style), ("vae_prior", None)) if cfg.use_vae else ((name, None),)
+        for case, real in cases:
+            card, cpu = (m.infer_logits(label, real).cpu() for m in models)
+            err, scale = float((card - cpu).abs().max()), float(cpu.abs().max())
+            r = dict(label=[H, W], output=list(cpu.shape[1:3]), max_abs_err=err,
+                     max_abs_cpu=scale, rel_err=err / scale,
+                     unsaturated_share=float((torch.tanh(cpu).abs() < 0.99).float().mean()))
+            res[case] = r
+            if not (bool(torch.isfinite(card).all()) and err <= 1e-4 * scale):
+                raise AssertionError(f"small_spade: {case} card vs CPU out of tolerance {r}")
+    pairs = set()
+    for hw, crop, aspect in (((70, 70), 64, 1.0), ((40, 130), 64, 3.25),
+                             ((370, 1226), 1248, 3.25), ((370, 1226), 256, 1.0)):
+        sh, sw = latent_hw(crop, aspect)
+        for k in range(6):  # the label to each block's grid, and the 2x upsamples
+            pairs.add((hw, (sh << k, sw << k)))
+            if k:
+                pairs.add(((sh << (k - 1), sw << (k - 1)), (sh << k, sw << k)))
+    x = torch.from_numpy(rng.uniform(-1, 1, (1, 3, 400, 1300)).astype(np.float32))
+    for (H, W), (h, w) in sorted(pairs):
+        src = x[..., :H, :W].contiguous()
+        if not torch.equal(resize_nearest(src.to(dev), h, w).cpu(), resize_nearest(src, h, w)):
+            raise AssertionError(f"small_spade: nearest resize {H}x{W} -> {h}x{w} differs")
+    emit("small_spade", **res, nearest_ratios_equal=len(pairs))
+
+
+def generator_flops(cfg, H: int, W: int) -> int:
+    """Floating-point operations (2 per multiply-add) of the generator's
+    convolutions and dense layers on one H x W label, counted from the layer
+    shapes on the meta device."""
+    from surfelmapping_tpu_torch.models.spade import build_modules
+
+    gen, _ = build_modules(cfg, "meta")
+    macs = 0
+
+    def count(mod, _, out):
+        nonlocal macs
+        if isinstance(mod, torch.nn.Conv2d):
+            macs += out.numel() * mod.in_channels // mod.groups * math.prod(mod.kernel_size)
+        else:
+            macs += out.numel() * mod.in_features
+
+    for m in gen.modules():
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+            m.register_forward_hook(count)
+    gen.logits(torch.empty(1, 3, H, W, device="meta"))
+    return 2 * macs
+
+
+class RecordingModel:
+    """A SpadeTrainer for enhance_frame that keeps the generator's last
+    output for the checks."""
+
+    def __init__(self, model):
+        self.model, self.device, self.last = model, model.device, None
+
+    def infer(self, label, real=None):
+        self.last = self.model.infer(label, real)
+        return self.last
+
+
+def spade_checks(fake: torch.Tensor, label: np.ndarray, sem: np.ndarray,
+                 final: np.ndarray) -> dict:
+    """An enhanced frame is right: the generator's output finite and in
+    [-1, 1]; the composite keeps every rendered pixel where the semantic is
+    not 0, bit for bit, and takes the GAN pixel wherever it is 0."""
+    from surfelmapping_tpu_torch.spade_test import fake_to_u8
+
+    finite = bool(torch.isfinite(fake).all())
+    peak = float(fake.abs().max())
+    hole = sem == 0
+    gan = fake_to_u8(fake, *label.shape[:2])
+    kept = bool(np.array_equal(final[~hole], label[~hole]))
+    filled = bool(np.array_equal(final[hole], gan[hole]))
+    if not (finite and peak <= 1.0 and kept and filled and final.shape == label.shape):
+        raise AssertionError(f"spade: bad frame (finite {finite}, max |x| {peak}, rendered "
+                             f"pixels kept {kept}, holes from the GAN {filled})")
+    return dict(hole_share=float(hole.mean()),
+                unsaturated_share=float((fake.abs() < 0.99).float().mean()))
+
+
+def phase_spade(dev, mapper, views, counters, smi: str) -> dict:
+    """The LADS serving chain at full width on the render phase's 20 views:
+    render_view (K1) -> the u8 label (views.render_u8, as acquire_images
+    makes it) -> spade_test.enhance_frame (what the CLI runs per frame) ->
+    composite with the render's semantic.  ngf 64 with seeded weights and
+    running statistics 0/1, at the KITTI inference geometry (crop 1248,
+    aspect 3.25) and at the CLI default (crop 256).  The generator's card
+    time is the profiler's kernel time per image; the card's idle share is
+    its kernel time over 4 frames of the chain, read under the profiler,
+    against the same 4 frames' wall time without it."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from surfelmapping_tpu_torch.models.pix2pix import SpadeConfig, SpadeTrainer, init_variables
+    from surfelmapping_tpu_torch.ops.splat import render_view
+    from surfelmapping_tpu_torch.spade_test import enhance_frame, unit_batch
+    from surfelmapping_tpu_torch.views import render_u8
+
+    cam, smap = mapper.cam, mapper.smap
+    t0 = time.perf_counter()
+    variables = init_variables(SpadeConfig(ngf=64), SEED)  # the crop changes no weight
+    init_s = time.perf_counter() - t0
+    res, k1 = {"card": smi, "init_s": init_s}, 0
+    for name, cfg in (("kitti_384x1248", SpadeConfig(ngf=64, crop_size=1248, aspect_ratio=3.25)),
+                      ("cli_256x256", SpadeConfig(ngf=64, crop_size=256))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = RecordingModel(SpadeTrainer(cfg, variables))  # the card by default
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+
+        def chain(view, hint):
+            with record_function("chain.render"):
+                out = render_view(smap, view, cam, start_blocks=hint)
+            with record_function("chain.label_to_host"):
+                label, sem = (t.cpu().numpy() for t in render_u8(out))
+            return enhance_frame(model, label, sem), label, sem, int(out["n_active_blocks"]) + 1
+
+        def frames_ms(hint, n=4):  # wall ms per frame of views[:n], from the same hint
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for v in views[:n]:
+                hint = chain(v, hint)[3]
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / n
+
+        reset_counts(counters)
+        hint, per_view = None, []
+        for v in views:
+            t0 = time.perf_counter()
+            final, label, sem, hint = chain(v, hint)
+            ms = (time.perf_counter() - t0) * 1e3
+            per_view.append(dict(ms=ms, **spade_checks(model.last[0], label, sem, final)))
+        launches = read_counts(counters)
+        k1 += launches["zbuffer_argmin"]
+        if launches["zbuffer_argmin"] < len(views):
+            raise AssertionError(f"spade: K1 launched {launches['zbuffer_argmin']} times for "
+                                 f"{len(views)} views")
+        median_ms = statistics.median(p["ms"] for p in per_view[2:])  # after 2 warm-up views
+        peak = torch.cuda.max_memory_allocated()
+
+        lab = unit_batch(label, dev)  # the last view's label, as enhance_frame hands it over
+        gen = lambda: model.model.infer(lab)  # noqa: E731
+        gen_launches, gen_ms_device = device_profile(gen, calls=3)
+        flops = generator_flops(cfg, *label.shape[:2])
+        bound_ms = flops / F32_OPS_PER_S * 1e3
+        wall_ms = frames_ms(hint)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall_ms_profiled = frames_ms(hint)
+        kernels = sorted(((e.key, e.self_device_time_total / 1e3 / 4, e.count / 4)
+                          for e in device_events(prof)), key=lambda k: -k[1])
+        busy_ms = sum(k[1] for k in kernels)
+        host_ms = {e.key: e.cpu_time_total / 1e3 / 4 for e in prof.key_averages()
+                   if e.key.startswith(("chain.", "spade."))
+                   and e.device_type == torch.autograd.DeviceType.CPU}
+        res[name] = dict(
+            output=list(model.last.shape[1:3]), label=list(label.shape[:2]), views=len(views),
+            frames_per_s=1e3 / median_ms, median_frame_ms=median_ms, load_s=load_s,
+            generator_ms_device=gen_ms_device, generator_ms=cuda_ms(gen, 10),
+            generator_flops=flops, f32_bound_ms=bound_ms,
+            share_of_f32_bound=bound_ms / gen_ms_device,
+            launches_per_image=gen_launches, launches=launches,
+            device_busy_ms_per_frame=busy_ms, wall_ms_per_frame=wall_ms,
+            device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+            wall_ms_per_frame_profiled=wall_ms_profiled,
+            device_idle_share_profiled=max(0.0, 1.0 - busy_ms / wall_ms_profiled),
+            max_memory_allocated=peak, above_start=peak - base,
+            unsaturated_share=statistics.mean(p["unsaturated_share"] for p in per_view),
+            cudnn_benchmark=torch.backends.cudnn.benchmark,
+            cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+            top_kernels=[dict(name=k[:100], device_ms_per_frame=t, launches_per_frame=c)
+                         for k, t, c in kernels[:8]],
+            host_ms_per_frame_profiled=host_ms, per_view=per_view)
+        del model
+    emit("spade", **res)
+    return {"zbuffer_argmin": k1}
 
 
 def main() -> int:
@@ -828,10 +1077,13 @@ def main() -> int:
     phase_holds(dev, mapper, frames, zbuf_mod)
     views, per_view, render = phase_render(dev, mapper, scene, counters, smi)
     phase_render_holds(dev, mapper, scene, views[0], per_view[0]["n_active_blocks"], zbuf_mod)
+    phase_small_spade(dev)
+    enhance = phase_spade(dev, mapper, views, counters, smi)
     probes = phase_probes(counters)
     tracking, (icp_mapper, icp_pose) = phase_icp_ba(dev, counters, smi)
     phase_icp_holds(dev, icp_mapper, icp_pose, zbuf_mod)
-    emit("paths", launches=dict(main=fusion, render=render, probes=probes, icp_ba=tracking))
+    emit("paths", launches=dict(main=fusion, render=render, probes=probes, icp_ba=tracking,
+                                spade=enhance))
     p1, p2 = probe["pallas_zbuf_453632"], probe["outres_1814480"]
 
     k1i, k1r = k1["index"], k1["render"]
@@ -840,7 +1092,7 @@ def main() -> int:
         dict(name="zbuffer_argmin", route="cuda", source=zbuf_mod.KERNEL.repo_source,
              replaces="surfelmapping_tpu/ops/pallas_zbuf.py:188",
              launches=(fusion["zbuffer_argmin"] + render["zbuffer_argmin"]
-                       + tracking["zbuffer_argmin"]),
+                       + tracking["zbuffer_argmin"] + enhance["zbuffer_argmin"]),
              max_abs_err=max(k1i["max_abs_err"], k1r["max_abs_err"]),
              ms=k1i["ms"], plain_ms=k1i["plain_ms"], bound_ms=k1i["bound_ms"],
              bound_by="bytes", library_ms=k1i["library_ms"], ms_device=k1i["ms_device"],

@@ -1,20 +1,27 @@
 """Carry state between the JAX package and the port, through numpy.
 
-The system has no weights: what carries over is the surfel map, the
+The mapper has no weights: what carries over is the surfel map, the
 mapper's running state (last filtered depth, last pose, tick), an active
 table and a BA window.  Columns are read out of the JAX dataclasses with
 ``np.asarray``; a float32 ``colorsem`` column becomes the port's int32 bits
 by ``.view``, never by arithmetic, so subnormal colors survive.
+
+The SPADE enhancer's weights carry over as flax variables: nested dicts of
+numpy arrays, ``{"params": ..., "batch_stats": ...}``.  :func:`flax_layout`
+is the one place where the port's tensors are named after flax's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from .ba import BAWindow
+from .models.spade import SPADENorm, build_modules, spectral_normalize
 from .ops.active import ActiveTable
 from .surfels import COLUMNS, SurfelMap, empty_map
 
@@ -86,3 +93,126 @@ def window_to_numpy(win: BAWindow) -> tuple[dict[str, np.ndarray], int]:
     """(arrays, n_valid) of a BAWindow, the JAX BAWindow's fields and dtypes
     (n_valid becomes int32 there)."""
     return {k: getattr(win, k).cpu().numpy() for k in _WINDOW_ARRAYS}, win.n_valid
+
+
+# -- SPADE weights ------------------------------------------------------------
+
+# flax's lecun_normal: a normal truncated to two deviations, scaled so the
+# truncated draw has variance 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+@dataclasses.dataclass(frozen=True)
+class FlaxSlot:
+    """One flax variable of a port module: the module's state_dict ``key``
+    that it fills (None for the spectral-norm state), its ``collection``
+    and ``path`` in the flax tree, its ``shape`` there, and its ``kind``
+    (conv: HWIO kernel of an OIHW weight; dense: (in, out) kernel of an
+    (out, in) weight; bias; mean and var of a SPADE norm; u and sigma of a
+    SpectralNorm).  A spectral-normed kernel also names its ``u_path``."""
+
+    key: str | None
+    collection: str
+    path: tuple[str, ...]
+    shape: tuple[int, ...]
+    kind: str
+    u_path: tuple[str, ...] | None = None
+
+
+def flax_layout(module: nn.Module) -> list[FlaxSlot]:
+    """Every flax variable of ``module`` (a models.spade module, on any
+    device).  The port's submodules carry the flax names, so a module path
+    is a flax path; a spectral-normed conv's state lives in its parent's
+    ``SpectralNorm_<k>`` under ``<conv>/kernel/{u,sigma}``, k its place in
+    the parent's ``SN_CONVS``."""
+    slots = []
+    for name, mod in module.named_modules():
+        path = tuple(name.split(".")) if name else ()
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            w = mod.weight
+            u_path = None
+            parent = module.get_submodule(".".join(path[:-1]))
+            if path[-1] in getattr(parent, "SN_CONVS", ()):
+                sn = path[:-1] + (f"SpectralNorm_{parent.SN_CONVS.index(path[-1])}",)
+                u_path = sn + (f"{path[-1]}/kernel/u",)
+                slots += [FlaxSlot(None, "batch_stats", u_path, (1, w.shape[0]), "u"),
+                          FlaxSlot(None, "batch_stats", sn + (f"{path[-1]}/kernel/sigma",), (),
+                                   "sigma")]
+            if isinstance(mod, nn.Conv2d):
+                slots.append(FlaxSlot(f"{name}.weight", "params", path + ("kernel",),
+                                      tuple(w.shape[2:]) + (w.shape[1], w.shape[0]), "conv",
+                                      u_path))
+            else:
+                slots.append(FlaxSlot(f"{name}.weight", "params", path + ("kernel",),
+                                      (w.shape[1], w.shape[0]), "dense"))
+            if mod.bias is not None:
+                slots.append(FlaxSlot(f"{name}.bias", "params", path + ("bias",),
+                                      tuple(mod.bias.shape), "bias"))
+        elif isinstance(mod, SPADENorm):
+            for stat in ("mean", "var"):
+                slots.append(FlaxSlot(f"{name}.{stat}".lstrip("."), "batch_stats",
+                                      path + ("BatchNorm_0", stat), tuple(mod.mean.shape), stat))
+    return slots
+
+
+def _leaf(tree: dict, path: tuple[str, ...]):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def init_numpy(module: nn.Module, gen: torch.Generator) -> dict:
+    """Flax variables for ``module`` drawn as flax initialises them, from
+    the generator ``gen``: lecun-normal kernels, zero biases, u ~ N(0, 1),
+    sigma 1, running mean 0 and variance 1."""
+    tree: dict = {"params": {}, "batch_stats": {}}
+    for s in flax_layout(module):
+        if s.kind in ("conv", "dense"):
+            std = math.sqrt(1.0 / math.prod(s.shape[:-1])) / _TRUNC_STD
+            t = torch.empty(s.shape)
+            nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+        elif s.kind == "u":
+            t = torch.randn(s.shape, generator=gen)
+        else:
+            t = torch.ones(s.shape) if s.kind in ("var", "sigma") else torch.zeros(s.shape)
+        node = tree[s.collection]
+        for k in s.path[:-1]:
+            node = node.setdefault(k, {})
+        node[s.path[-1]] = t.numpy()
+    return tree
+
+
+def load_numpy(module: nn.Module, variables: dict, device: torch.device | str) -> nn.Module:
+    """``module`` (built on the meta device) with its weights from the flax
+    ``variables``, on ``device``, in eval mode.  Spectral-normed kernels are
+    divided by their sigma here, once."""
+    state = {}
+    for s in flax_layout(module):
+        if s.key is None:
+            continue
+        a = torch.from_numpy(np.array(_leaf(variables[s.collection], s.path), np.float32))
+        if s.u_path is not None:
+            u = torch.from_numpy(np.array(_leaf(variables["batch_stats"], s.u_path), np.float32))
+            a = spectral_normalize(a, u)
+        if s.kind == "conv":
+            a = a.permute(3, 2, 0, 1)
+        elif s.kind == "dense":
+            a = a.T
+        state[s.key] = a.contiguous()
+    module.load_state_dict(state, strict=True, assign=True)
+    return module.to(device).requires_grad_(False).eval()
+
+
+def spade_from_numpy(variables: dict, cfg, device: torch.device | str):
+    """(generator, encoder) of the port from flax variables: the generator's
+    ``{"params", "batch_stats"}`` (or a TrainState's ``g_params`` and
+    ``g_batch_stats``); with ``cfg.use_vae`` both hold ``gen`` and ``enc``
+    (pix2pix.py:155-161), else the encoder is None.  ``cfg`` is a
+    ``models.pix2pix.SpadeConfig``."""
+    if "g_params" in variables:
+        variables = {"params": variables["g_params"], "batch_stats": variables["g_batch_stats"]}
+    gen, enc = build_modules(cfg, "meta")
+    if enc is None:
+        return load_numpy(gen, variables, device), None
+    part = lambda name: {c: tree[name] for c, tree in variables.items()}  # noqa: E731
+    return load_numpy(gen, part("gen"), device), load_numpy(enc, part("enc"), device)

@@ -24,8 +24,12 @@ import torch
 
 
 def full_precision_matmul() -> None:
-    """Run float32 matmuls in full float32 (no TF32) on the card."""
+    """Run float32 matmuls and cuDNN convolutions in full float32 (no TF32)
+    on the card.  cuDNN takes TF32 for float32 convolutions by default, and
+    the SPADE generator's card output is held against the CPU's at 1e-4 of
+    its scale, which ~10 mantissa bits per product do not keep."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def transform_planar(T: torch.Tensor, x, y, z):

@@ -117,6 +117,13 @@ def overview_views(
     return out
 
 
+def render_u8(out: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """A render's image and semantic PNGs as u8 tensors: the RGB rounded
+    and clipped to [0, 255], the semantic as class+1 with 0 = hole."""
+    rgb = torch.clamp(torch.round(out["rgb"] * 255.0), 0, 255).to(torch.uint8)
+    return rgb, out["semantic"].to(torch.uint8)
+
+
 def acquire_images(
     smap: SurfelMap,
     views: list[np.ndarray],
@@ -147,8 +154,7 @@ def acquire_images(
     for i, v in enumerate(views):
         out = render_view(smap, v, cam, footprint=footprint, start_blocks=hint, device=dev)
         hint = int(out["n_active_blocks"]) + 1
-        rgb = torch.clamp(torch.round(out["rgb"] * 255.0), 0, 255).to(torch.uint8)
-        sem = out["semantic"].to(torch.uint8)
+        rgb, sem = render_u8(out)
         name = f"{start_id + i:06d}.png"
         Image.fromarray(rgb.cpu().numpy()).save(os.path.join(image_dir, name))
         Image.fromarray(sem.cpu().numpy()).save(os.path.join(sem_dir, name))

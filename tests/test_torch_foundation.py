@@ -159,8 +159,9 @@ def test_map_roundtrip_through_convert(rng, tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Importing every port module and chip_smoke loads no jax* module and
-    nothing of the JAX package (exact names: the port shares its prefix)."""
+    """Importing every port module and chip_smoke loads no jax*, flax, optax
+    or msgpack module and nothing of the JAX package (exact names: the port
+    shares its prefix)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import surfelmapping_tpu_torch as pkg\n"
@@ -168,6 +169,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0].startswith('jax')\n"
+        "       or m.split('.')[0] in ('flax', 'optax', 'msgpack')\n"
         "       or m == 'surfelmapping_tpu' or m.startswith('surfelmapping_tpu.')]\n"
         "print(len([m for m in sys.modules if m.startswith('surfelmapping_tpu_torch')]))\n"
         "print(sorted(bad))\n"
@@ -179,21 +181,34 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("entry", ["SurfelMapper", "render_view", "load_map", "ICPRefiner",
-                                   "WindowedBA", "build_map"])
+                                   "WindowedBA", "build_map", "SpadeTrainer", "spade_test"])
 @pytest.mark.parametrize("device", [None, "cuda"])
 def test_entry_point_defaults_to_the_card(device, entry, tmp_path):
-    """The mapper, the renderer, the trackers and the CLIs run on the card
-    unless asked for the CPU; without CUDA they raise rather than fall back."""
-    from surfelmapping_tpu_torch import build_map, load_map
+    """The mapper, the renderer, the trackers, the SPADE model and the CLIs
+    run on the card unless asked for the CPU; without CUDA they raise rather
+    than fall back."""
+    from PIL import Image
+
+    from surfelmapping_tpu_torch import build_map, load_map, spade_test
     from surfelmapping_tpu_torch.ba import WindowedBA
     from surfelmapping_tpu_torch.config import PipelineParams
     from surfelmapping_tpu_torch.icp import ICPRefiner
     from surfelmapping_tpu_torch.io.synthetic import tiny_cam
+    from surfelmapping_tpu_torch.models.pix2pix import SpadeConfig, SpadeTrainer, init_variables
     from surfelmapping_tpu_torch.ops.splat import render_view
     from surfelmapping_tpu_torch.pipeline import SurfelMapper
 
     path = str(tmp_path / "empty.bin")
     surfels.save_map(surfels.empty_map(8, "cpu"), path, 0, 1)
+    spade = SpadeConfig(ngf=8, crop_size=32)
+    if entry == "spade_test":  # a checkpoint holding the generator, one label
+        from test_torch_gpu import _msgpack  # flax's msgpack subset, without flax
+
+        v = init_variables(spade)
+        (tmp_path / "g.msgpack").write_bytes(_msgpack(
+            {"g_params": v["params"], "g_batch_stats": v["batch_stats"]}))
+        (tmp_path / "labels").mkdir()
+        Image.fromarray(np.zeros((32, 32, 3), np.uint8)).save(tmp_path / "labels" / "0.png")
     calls = {
         "SurfelMapper": lambda: SurfelMapper(tiny_cam(), device=device).device,
         "render_view": lambda: render_view(surfels.empty_map(8, "cpu"), np.eye(4), tiny_cam(),
@@ -207,10 +222,15 @@ def test_entry_point_defaults_to_the_card(device, entry, tmp_path):
             ["--synthetic", "3", "--synthetic-cam", "small", "--icp", "--ba", "--capacity",
              str(1 << 16), "--out", str(tmp_path / "m.bin")]
             + ([] if device is None else ["--device", device])),
+        "SpadeTrainer": lambda: SpadeTrainer(spade, init_variables(spade), device=device).device,
+        "spade_test": lambda: spade_test.main(
+            ["--ckpt", str(tmp_path / "g.msgpack"), "--label-dir", str(tmp_path / "labels"),
+             "--crop", "32", "--ngf", "8", "--out", str(tmp_path / "enhanced")]
+            + ([] if device is None else ["--device", device])),
     }
     if torch.cuda.is_available():
         got = calls[entry]()
-        assert got == 0 if entry.endswith("_map") else got.type == "cuda"
+        assert got == 0 if entry in ("load_map", "build_map", "spade_test") else got.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             calls[entry]()

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels on the card, against their plain
-PyTorch versions, and the main path and the renderer on the card against
-the CPU.
+PyTorch versions, and the main path, the renderer, tracking and the SPADE
+enhancer on the card against the CPU.
 
 Every test here needs a CUDA card: it carries the ``gpu`` marker and skips
 without one.  The file imports neither JAX nor the JAX package, so it also
@@ -9,9 +9,13 @@ runs on a machine that has only PyTorch, without the suite's conftest:
     python -m pytest --noconftest -o addopts= -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 
+import os
+import struct
+
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from surfelmapping_tpu_torch.config import CameraIntrinsics, MapConfig, PipelineParams
 from surfelmapping_tpu_torch.io.synthetic import (STENCIL_CASES, SyntheticScene, kitti_cam,
@@ -25,7 +29,8 @@ from surfelmapping_tpu_torch.ops.colors import unit_rgb
 from surfelmapping_tpu_torch.ops.preprocess import (metricize_depth, remove_movings,
                                                     stencil_chain_plain)
 from surfelmapping_tpu_torch.ops.splat import render_view
-from surfelmapping_tpu_torch import ba, convert, icp
+from surfelmapping_tpu_torch import ba, convert, icp, spade_test
+from surfelmapping_tpu_torch.models.pix2pix import SpadeConfig, SpadeTrainer, init_variables
 from surfelmapping_tpu_torch.ops import transforms
 from surfelmapping_tpu_torch.ops.active import table_from_map
 from surfelmapping_tpu_torch.ops.transforms import compose, invert_se3
@@ -348,3 +353,96 @@ def test_dropout_update_is_exactly_zero_on_the_card(cuda):
     pose, diag = icp.refine_pose(smap.to(cuda), _depth(cuda, cam, params, np.zeros_like(d), s),
                                  T0, cam, params)
     assert int(diag["inliers"]) == 0 and torch.equal(pose, T0)
+
+
+def _random_bn_stats(tree: dict, rng) -> dict:
+    """``tree`` with every BatchNorm_0 mean ~ N(0, 0.1) and var ~ U(0.5, 2)."""
+    for k, v in tree.items():
+        if k == "BatchNorm_0":
+            v["mean"] = rng.normal(0, 0.1, v["mean"].shape).astype(np.float32)
+            v["var"] = rng.uniform(0.5, 2.0, v["var"].shape).astype(np.float32)
+        elif isinstance(v, dict):
+            _random_bn_stats(v, rng)
+    return tree
+
+
+@pytest.mark.parametrize("case", ["aspect_1.0", "aspect_3.25", "vae_style", "vae_prior"])
+def test_spade_generator_on_the_card_matches_the_cpu(case, cuda):
+    """The generator (and the encoder's mu) at ngf 16, crop 64, batch 2 on
+    the card and on the CPU from the same weights: the image before its
+    tanh within 1e-4 of its largest magnitude (float32, no TF32)."""
+    vae = case.startswith("vae")
+    cfg = SpadeConfig(ngf=16, ndf=16, crop_size=64, use_vae=vae,
+                      aspect_ratio=3.25 if case == "aspect_3.25" else 1.0)
+    rng = np.random.default_rng(0)
+    v = init_variables(cfg, seed=0)
+    v["batch_stats"] = _random_bn_stats(v["batch_stats"], rng)
+    label = torch.from_numpy(rng.uniform(-1, 1, (2, 40, 130, 3)).astype(np.float32))
+    style = (torch.from_numpy(rng.uniform(-1, 1, (2, 70, 90, 3)).astype(np.float32))
+             if case == "vae_style" else None)
+    got, want = (SpadeTrainer(cfg, variables=v, device=d).infer_logits(
+        label, style).cpu() for d in (cuda, "cpu"))
+    assert got.shape == want.shape == (2, 64 if case != "aspect_3.25" else 32, 64, 3)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert float((torch.tanh(want).abs() < 0.99).float().mean()) > 0.5
+
+
+def _msgpack(obj) -> bytes:
+    """The msgpack subset of a flax checkpoint: maps, lists, str, bytes,
+    non-negative ints, numpy arrays as ext type 1 of (shape, dtype, bytes)."""
+    def head(n, fix, fixmax, b16, b32):
+        if n <= fixmax:
+            return bytes([fix | n])
+        if n < 1 << 16:
+            return bytes([b16]) + struct.pack(">H", n)
+        return bytes([b32]) + struct.pack(">I", n)
+
+    if isinstance(obj, dict):
+        return head(len(obj), 0x80, 15, 0xDE, 0xDF) + b"".join(
+            _msgpack(k) + _msgpack(v) for k, v in obj.items())
+    if isinstance(obj, list):
+        return head(len(obj), 0x90, 15, 0xDC, 0xDD) + b"".join(map(_msgpack, obj))
+    if isinstance(obj, str):
+        raw = obj.encode()
+        return head(len(raw), 0xA0, 31, 0xDA, 0xDB) + raw
+    if isinstance(obj, bytes):
+        return b"\xc6" + struct.pack(">I", len(obj)) + obj
+    if isinstance(obj, int) and 0 <= obj < 1 << 32:
+        return b"\xce" + struct.pack(">I", obj)
+    if isinstance(obj, np.ndarray):
+        payload = _msgpack([list(obj.shape), obj.dtype.name, np.ascontiguousarray(obj).tobytes()])
+        return b"\xc9" + struct.pack(">Ib", len(payload), 1) + payload
+    raise TypeError(type(obj))
+
+
+def test_spade_test_cli_on_the_card(tmp_path, cuda):
+    """spade_test on the card (its default device) and on the CPU over the
+    same PNGs, from a checkpoint of the port's seeded weights written in
+    flax's format: the same files, u8 images within one level, rendered
+    pixels kept where the semantic is not 0."""
+    v = init_variables(SpadeConfig(ngf=8, crop_size=64), seed=1)
+    v["batch_stats"] = _random_bn_stats(v["batch_stats"], np.random.default_rng(1))
+    ckpt = tmp_path / "spade.msgpack"
+    ckpt.write_bytes(_msgpack({"g_params": v["params"], "g_batch_stats": v["batch_stats"],
+                               "step": np.zeros((), np.int32)}))
+    labels, sems = tmp_path / "image", tmp_path / "semantic"
+    labels.mkdir()
+    sems.mkdir()
+    rng = np.random.default_rng(2)
+    for fid in range(3):
+        Image.fromarray(rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)).save(
+            labels / f"{fid:06d}.png")
+        Image.fromarray((rng.uniform(size=(64, 64)) < 0.6).astype(np.uint8) * 5).save(
+            sems / f"{fid:06d}.png")
+    argv = ["--ckpt", str(ckpt), "--label-dir", str(labels), "--semantic-dir", str(sems),
+            "--crop", "64", "--ngf", "8"]
+    assert spade_test.main(argv + ["--out", str(tmp_path / "card")]) == 0
+    assert spade_test.main(argv + ["--out", str(tmp_path / "cpu"), "--device", "cpu"]) == 0
+    names = sorted(os.listdir(tmp_path / "card"))
+    assert names == sorted(os.listdir(tmp_path / "cpu")) == sorted(os.listdir(labels))
+    for n in names:
+        got = np.asarray(Image.open(tmp_path / "card" / n)).astype(int)
+        want = np.asarray(Image.open(tmp_path / "cpu" / n)).astype(int)
+        assert np.abs(got - want).max() <= 1, n
+        keep = np.asarray(Image.open(sems / n)) != 0
+        np.testing.assert_array_equal(got[keep], np.asarray(Image.open(labels / n))[keep])
