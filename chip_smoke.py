@@ -10,7 +10,8 @@ Phases, each printed as one JSON line:
   build    the kernels built from the sources in the checkout (one nvcc per
            source, started together), with ptxas' register/shared/spill
            lines, K2's CTAs per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-           and its SASS instructions per smooth tap (cuobjdump -sass)
+           and its SASS instructions per smooth tap (cuobjdump -sass), and
+           the shared-memory atomics in P1/P2's resolve pass (its SASS)
   k1       the z-buffer kernel vs its plain version, exact, at the index
            map's shape (P = 453,620 pixels, A = 1,048,576 candidates,
            n_valid = 700,001; also n_valid = 0 and A) and at the renderer's
@@ -30,7 +31,11 @@ Phases, each printed as one JSON line:
   holds    the kernels vs their plain versions on the main path's own state
   outres   the probe kernels P1 (pallas_zbuf) and P2 (outres) vs their plain
            version at the TPU probes' shapes (P = 453,620 and 1,814,480,
-           A = 1,048,576 in random order, a min-id tie planted): exact
+           A = 1,048,576 in random order, a min-id tie planted), then at both
+           shapes in block order, all in one tile and with signed keys
+           (INT32_MIN among them), and through zbuffer_outres with a ragged A,
+           A = 0 and all keys INT32_MAX: exact; each case warm and cold
+           beside the library call, with device launches per call
   render   the render path at KITTI resolution: 20 random novel views of the
            main phase's ~4.4 M-surfel map through render_view(method="fast"),
            views/s, per-view cull sizes, budget retries, coverage, memory
@@ -114,19 +119,31 @@ def device_events(prof) -> list:
             if e.device_type == cuda and not getattr(e, "is_user_annotation", False)]
 
 
-def device_profile(fn, calls: int = 8) -> tuple[int, float]:
+def device_profile(fn, calls: int = 8, tries: int = 3) -> tuple[int, float]:
     """What one call of ``fn`` puts on the card: torch.profiler's count of
     kernels over ``calls`` calls, per call, rounded (a trace now and then
-    drops a kernel of a single call), and their device ms per call."""
+    drops a kernel of a single call), and their device ms per call.
+
+    Every ``fn`` measured here launches at least one kernel per call, so a
+    trace with fewer device events than ``calls`` lost events in the
+    profiler (on the H100 one trace in about a hundred came back with next
+    to none): it is taken again, up to ``tries`` times, and each loss is
+    printed.  A trace that stays short is returned as it is, and the
+    caller's launch check fails on it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = device_events(prof)
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        n_events = sum(e.count for e in events)
+        if n_events >= calls:
+            break
+        emit("profiler", lost_trace=attempt, of=tries, events=n_events, calls=calls)
     return (round(sum(e.count for e in events) / calls),
             sum(e.self_device_time_total for e in events) / 1e3 / calls)
 
@@ -199,19 +216,21 @@ def phase_k1(dev, zbuf_mod) -> dict:
     return res
 
 
-def sass_opcodes(kernel, radius: int) -> collections.Counter:
-    """Opcode counts of K2's radius-``radius`` instantiation in its built
-    library (``cuobjdump -sass``)."""
+def sass_opcodes(kernel, function: str, modifiers: bool = False) -> collections.Counter:
+    """Opcode counts of the first function whose mangled name contains
+    ``function`` in a kernel's built library (``cuobjdump -sass``); with
+    ``modifiers``, each opcode with its modifiers (``ATOMS.CAS.64``)."""
     from surfelmapping_tpu_torch.ops.cuda_lib import nvcc_path
 
     cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(kernel.library_path())],
                           check=True, capture_output=True, text=True, timeout=120).stdout
+    op = r"[A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*" if modifiers else r"[A-Z][A-Z0-9_]*"
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
-        if f"stencil_kernelILi{radius}E" in fn.split("\n", 1)[0]:
+        if function in fn.split("\n", 1)[0]:
             return collections.Counter(
-                re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", fn))
-    raise AssertionError(f"build: no radius-{radius} stencil kernel in the SASS")
+                re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?(" + op + ")", fn))
+    raise AssertionError(f"build: no function {function} in the SASS of {kernel.name}")
 
 
 def k2_design(k2_mod, radius: int) -> dict:
@@ -221,7 +240,8 @@ def k2_design(k2_mod, radius: int) -> dict:
     occ = k2_mod.occupancy(radius)
     h, w = occ["tile"]
     pixels_per_thread = (h + 2) * (w + 2) // occ["threads_per_cta"]
-    big, small = sass_opcodes(k2_mod.KERNEL, radius), sass_opcodes(k2_mod.KERNEL, 0)
+    big = sass_opcodes(k2_mod.KERNEL, f"stencil_kernelILi{radius}E")
+    small = sass_opcodes(k2_mod.KERNEL, "stencil_kernelILi0E")
     taps = ((2 * radius + 1) ** 2 - 1) * pixels_per_thread
     delta = big - small
     return dict(**occ, smooth_pixels_per_thread=pixels_per_thread,
@@ -543,50 +563,99 @@ def phase_holds(dev, mapper, frames, zbuf_mod) -> None:
 
 
 def phase_outres(dev, outres_mod) -> dict:
-    """P1 and P2 against their plain version at the TPU probes' shapes,
-    exact, with a min-id tie planted."""
-    from surfelmapping_tpu_torch.tools.timing import bound_ms, packed_scatter_min
+    """P1 and P2 against their plain version, exact: at the TPU probes'
+    shapes with a min-id tie planted; then, through the entry points at both
+    shapes, candidates in block order (pixels ascending), all in one tile
+    (the worst skew: one resolve block takes all 2^20) and signed keys with
+    INT32_MIN; through zbuffer_outres, a candidate count that is not a
+    multiple of a bin span, none, and all keys INT32_MAX.  Each case timed
+    warm and cold beside the library call, with the kernel's device
+    launches per call."""
+    from surfelmapping_tpu_torch.tools.timing import (
+        bound_ms, ordered_candidates, packed_scatter_min)
 
     A = 1 << 20
     rng = np.random.default_rng(SEED)
-    res = {}
+    cases = []
     for name, P in (("outres", 453_620), ("outres", 4 * 453_620), ("pallas_zbuf", 453_632)):
         zkey = rng.integers(100, 1 << 30, A).astype(np.int32)
         fpix = rng.integers(0, P, A).astype(np.int32)
         fpix[fpix == 4242] = 4243
         zkey[[5, 17, 123_456]] = 77
         fpix[[5, 17, 123_456]] = 4242
-        zk = torch.from_numpy(zkey).to(dev)
-        fp = torch.from_numpy(fpix).to(dev)
+        cases.append((f"{name}_{P}", name, P, True,
+                      torch.from_numpy(zkey).to(dev), torch.from_numpy(fpix).to(dev)))
+    for order in ("block", "one_tile", "signed"):
+        for name, P in (("pallas_zbuf", 453_632), ("outres", 4 * 453_620)):
+            zk, fp = ordered_candidates(np.random.default_rng(SEED), P, A, order, dev)
+            cases.append((f"{name}_{P}_{order}", name, P, False, zk, fp))
+    zk, fp = ordered_candidates(np.random.default_rng(SEED), 453_632, A, "random", dev)
+    ragged = A - 8192 + 1003  # neither a multiple of the bin span nor of 4
+    cases += [("ragged_a", "direct", 453_632, False, zk[:ragged], fp[:ragged]),
+              ("a_zero", "direct", 453_632, False, zk[:0], fp[:0]),
+              ("all_invalid", "direct", 453_632, False, torch.full_like(zk, INT32_MAX), fp)]
+
+    res = {}
+    for label, name, P, tie, zk, fp in cases:
         if name == "outres":
             n_pix, entry = outres_mod.outres_pixels(P), outres_mod.P2
             zb, ib = outres_mod.outres(zk, fp, P)
-        else:
+        elif name == "pallas_zbuf":
             n_pix, entry = P, outres_mod.P1
             zb, ib = (t.reshape(-1) for t in outres_mod.pallas_zbuf(zk, fp, P))
+        else:
+            n_pix, entry = P, outres_mod.P2
+            out = outres_mod.zbuffer_outres(zk, fp, n_pix, entry)
+            zb, ib = out[:, 1], out[:, 0]
         ref = outres_mod.zbuffer_outres_plain(zk, fp, n_pix)
         zr, ir = ref[:zb.shape[0], 1], ref[:zb.shape[0], 0]
-        kernel = lambda: outres_mod.zbuffer_outres(zk, fp, n_pix, entry)  # noqa: E731
-        plain = lambda: outres_mod.zbuffer_outres_plain(zk, fp, n_pix)  # noqa: E731
         torch.cuda.synchronize()
         if not (torch.equal(zb, zr) and torch.equal(ib, ir)):
-            raise AssertionError(f"outres: {name} P={P}: kernel != plain on "
+            raise AssertionError(f"outres: {label}: kernel != plain on "
                                  f"{int((zb != zr).sum())} keys, {int((ib != ir).sum())} ids")
-        if (int(zb[4242]), int(ib[4242])) != (77, 5):
-            raise AssertionError(f"outres: {name} P={P}: tie pixel gave "
+        if tie and (int(zb[4242]), int(ib[4242])) != (77, 5):
+            raise AssertionError(f"outres: {label}: tie pixel gave "
                                  f"({int(zb[4242])}, {int(ib[4242])})")
-        library, (lz, li) = packed_scatter_min(zk, fp, P)
-        if not (torch.equal(lz, zr[:P]) and torch.equal(li, ir[:P])):
-            raise AssertionError(f"outres: {name} P={P}: library yardstick disagrees")
+        if label in ("a_zero", "all_invalid") and not bool((ref == INT32_MAX).all()):
+            raise AssertionError(f"outres: {label}: a pixel was written")
+        P_lib = min(P, n_pix)
+        library, (lz, li) = packed_scatter_min(zk, fp, P_lib)
+        if not (torch.equal(lz, zr[:P_lib]) and torch.equal(li, ir[:P_lib])):
+            raise AssertionError(f"outres: {label}: library yardstick disagrees")
         max_err = max(int((zb.long() - zr.long()).abs().max()),
                       int((ib.long() - ir.long()).abs().max()))
-        r = dict(P=P, A=A, buffer_pixels=n_pix, exact=True, max_abs_err=max_err,
-                 empty_pixels=int((ib == INT32_MAX).sum()), ms=cuda_ms(kernel, 50),
-                 ms_device=cuda_ms(kernel, 50, hold=True), plain_ms=cuda_ms(plain, 20),
-                 library_ms=cuda_ms(library, 20), bound_ms=bound_ms(A, n_pix))
-        res[f"{name}_{P}"] = r
+        kernel = lambda: outres_mod.zbuffer_outres(zk, fp, n_pix, entry)  # noqa: E731
+        plan = outres_mod.outres_plan(zk.shape[0], n_pix)
+        r = dict(P=P, A=zk.shape[0], buffer_pixels=n_pix, tile=plan.tile, tiles=plan.tiles,
+                 bin_blocks=plan.bin_blocks, exact=True, max_abs_err=max_err,
+                 empty_pixels=int((ib == INT32_MAX).sum()),
+                 plain_ms=cuda_ms(lambda: outres_mod.zbuffer_outres_plain(zk, fp, n_pix), 5),
+                 bound_ms=bound_ms(zk.shape[0], n_pix), ms=cuda_ms(kernel, 50),
+                 ms_device=cuda_ms(kernel, 50, hold=True), ms_device_cold=cuda_ms_cold(kernel, 20),
+                 device_launches_per_call=device_profile(kernel)[0],
+                 library_ms=cuda_ms(library, 20), library_ms_device=cuda_ms(library, 50, hold=True),
+                 library_ms_device_cold=cuda_ms_cold(library, 20))
+        if r["device_launches_per_call"] != (2 if zk.shape[0] else 1):
+            raise AssertionError(f"outres: {label}: {r['device_launches_per_call']} device "
+                                 "launches per call")
+        res[label] = r
     emit("outres", **res)
     return res
+
+
+def outres_row(name: str, replaces: str, probe: dict, P: int, launches: int,
+               source: str) -> dict:
+    """The kernels line's row of a probe entry point: its random case at
+    the probe's shape, with the device times of the block-order and
+    one-tile cases beside; max_abs_err over every outres case."""
+    r = probe[f"{name}_{P}"]
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "ms_device", "ms_device_cold",
+            "library_ms_device", "library_ms_device_cold", "device_launches_per_call")
+    return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+                max_abs_err=max(c["max_abs_err"] for c in probe.values()), bound_by="bytes",
+                **{k: r[k] for k in keys},
+                **{f"ms_device_{order}": probe[f"{name}_{P}_{order}"]["ms_device"]
+                   for order in ("block", "one_tile")})
 
 
 def phase_render(dev, mapper, scene, counters, smi: str) -> tuple:
@@ -1066,7 +1135,11 @@ def main() -> int:
              for k in kernels}
     cam, params = kitti_cam(), PipelineParams()
     k2_build = k2_design(k2_mod, params.smooth_radius)
-    emit("build", seconds=build_s, ptxas=ptxas, k2=k2_build)
+    outres_atoms = {op: n for op, n in sass_opcodes(outres_mod.KERNEL, "resolve_tiles",
+                                                     modifiers=True).items()
+                    if op.startswith("ATOM")}
+    emit("build", seconds=build_s, ptxas=ptxas, k2=k2_build,
+         outres_resolve_shared_atomics=outres_atoms)
 
     k1 = phase_k1(dev, zbuf_mod)
     k2 = phase_k2(dev, cam, params)
@@ -1084,7 +1157,6 @@ def main() -> int:
     phase_icp_holds(dev, icp_mapper, icp_pose, zbuf_mod)
     emit("paths", launches=dict(main=fusion, render=render, probes=probes, icp_ba=tracking,
                                 spade=enhance))
-    p1, p2 = probe["pallas_zbuf_453632"], probe["outres_1814480"]
 
     k1i, k1r = k1["index"], k1["render"]
     table = [
@@ -1111,16 +1183,10 @@ def main() -> int:
              bound_by=k2["bound_by"], library_ms=None, ms_device=k2["ms_device"],
              ms_device_cold=k2["ms_device_cold"], ctas_per_sm=k2_build["ctas_per_sm"],
              sass_instructions_per_tap=k2_build["sass_instructions_per_tap"]),
-        dict(name="pallas_zbuf", route="cuda", source=outres_mod.KERNEL.repo_source,
-             replaces="tools/probe_pallas_zbuf.py:94", launches=probes["pallas_zbuf"],
-             max_abs_err=p1["max_abs_err"], ms=p1["ms"], plain_ms=p1["plain_ms"],
-             bound_ms=p1["bound_ms"], bound_by="bytes", library_ms=p1["library_ms"],
-             ms_device=p1["ms_device"]),
-        dict(name="outres", route="cuda", source=outres_mod.KERNEL.repo_source,
-             replaces="tools/probe_zbuf_variants.py:66", launches=probes["outres"],
-             max_abs_err=p2["max_abs_err"], ms=p2["ms"], plain_ms=p2["plain_ms"],
-             bound_ms=p2["bound_ms"], bound_by="bytes", library_ms=p2["library_ms"],
-             ms_device=p2["ms_device"]),
+        outres_row("pallas_zbuf", "tools/probe_pallas_zbuf.py:94", probe, 453_632,
+                   probes["pallas_zbuf"], outres_mod.KERNEL.repo_source),
+        outres_row("outres", "tools/probe_zbuf_variants.py:66", probe, 4 * 453_620,
+                   probes["outres"], outres_mod.KERNEL.repo_source),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

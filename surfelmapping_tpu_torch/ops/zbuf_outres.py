@@ -7,10 +7,13 @@ Both compute K1's function (ops/zbuf.py) without a valid-prefix bound: per
 pixel the minimum int32 key among the candidates that land there, and the
 smallest candidate index among those with that key; a key of INT32_MAX never
 writes; an empty pixel is (INT32_MAX, INT32_MAX).  One CUDA source,
-``csrc/zbuffer_outres.cu``, serves both.  Its output is one int32[n, 2]
-tensor whose pairs (id, key) are the 64-bit words (key << 32) | id that its
-atomics update, and the entry points return the key and id planes as strided
-views of it.
+``csrc/zbuffer_outres.cu``, serves both: a binned shared-memory z-buffer.  A
+bin pass sorts the candidates by pixel tile within each block's span, and a
+resolve pass takes one tile per block, reduces it in shared memory and
+writes it out once.  :func:`outres_plan` sizes the tiles, the bin blocks and
+the scratch, which the wrapper allocates.  The output is one int32[n, 2]
+tensor whose pairs (id, key) are the 64-bit words (key << 32) | id, and the
+entry points return the key and id planes as strided views of it.
 
 A CPU tensor goes to :func:`zbuffer_outres_plain`; a CUDA tensor goes to the
 kernel (or the wrapper raises).
@@ -28,6 +31,8 @@ of the mapper or the renderer.
 from __future__ import annotations
 
 import ctypes
+import math
+from dataclasses import dataclass
 
 import torch
 
@@ -35,14 +40,91 @@ from .cuda_lib import CudaKernel, LaunchCount, ptr, require_cuda, stream_handle
 from .index_map import INT32_MAX
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 KERNEL = CudaKernel(
     "zbuffer_outres", "zbuffer_outres.cu",
-    {"zbuffer_outres_launch": (ctypes.c_int, [_P, _P, ctypes.c_int64, ctypes.c_int64,
-                                              _P, _P])},
+    {"zbuffer_outres_launch": (_I, [_P, _P, _I, _I, _I, _P, _P, _P, _P])},
 )
 P1 = LaunchCount("pallas_zbuf")
 P2 = LaunchCount("outres")
 LANES = 128
+
+# The plan's sizes, the one place that checks what the kernel can take.
+SPAN = 8192               # candidates per bin block (csrc/zbuffer_outres.cu's kSpan)
+TILE_LOG2_RANGE = (10, 14)  # 1024 to 16384 pixels: 8 to 128 KB of keys and ids per resolve block
+ENTRIES_PER_TILE = 2048   # the mean bucket the plan aims a tile at
+MIN_TILES = 2 * 132       # at least two resolve blocks per SM of the H100
+MAX_TILES = 12_000        # bin's per-tile counts within 48 KB of shared memory
+SMEM_PER_BLOCK = 232_448  # the H100's shared memory a block can use (227 KB)
+
+
+@dataclass(frozen=True)
+class OutresPlan:
+    """The kernel's launch for A candidates over n_pix pixels: tiles of
+    2^tile_log2 pixels, one resolve block each (the last tile ragged unless
+    T divides n_pix); bin blocks of SPAN candidates (the last one ragged);
+    the scratch: ``entries`` int64 words (one per candidate) and ``starts``
+    int32 values (the segment table, (tiles + 1) x bin_blocks)."""
+
+    tile_log2: int
+    tiles: int
+    bin_blocks: int
+    entries: int
+    starts: int
+
+    @property
+    def tile(self) -> int:
+        return 1 << self.tile_log2
+
+    @property
+    def bin_smem(self) -> int:
+        """Shared memory bytes of one bin block: its span's entries and its
+        per-tile counts."""
+        return 8 * SPAN + 4 * self.tiles
+
+    @property
+    def tile_smem(self) -> int:
+        """Shared memory bytes of one resolve block's tile: a key and an id
+        per pixel."""
+        return 8 * self.tile
+
+
+def default_tile_log2(A: int, n_pix: int) -> int:
+    """The power of two nearest ENTRIES_PER_TILE candidates per tile at the
+    mean density A / n_pix, no wider than leaves MIN_TILES tiles, within
+    TILE_LOG2_RANGE.  At the probes' 2^20 candidates: 1024 pixels over
+    P1's 453,632 and 4096 over P2's 1,814,528, 443 tiles each."""
+    lo, hi = TILE_LOG2_RANGE
+    want = round(math.log2(ENTRIES_PER_TILE * n_pix / A)) if A and n_pix else lo
+    cap = math.floor(math.log2(n_pix / MIN_TILES)) if n_pix >= MIN_TILES else lo
+    return max(lo, min(hi, want, cap))
+
+
+def outres_plan(A: int, n_pix: int) -> OutresPlan:
+    """The launch for A candidates over n_pix pixels: the tile of
+    :func:`default_tile_log2`, widened while the pixels need more than
+    MAX_TILES tiles.  Raises ValueError where the kernel cannot take the
+    sizes."""
+    if not 0 <= A < 2**31:
+        raise ValueError(f"zbuffer_outres: {A} candidates; indices must fit in int32")
+    if not 0 <= n_pix < 2**31:
+        raise ValueError(f"zbuffer_outres: {n_pix} pixels; pixels must fit in int32")
+    tile_log2 = default_tile_log2(A, n_pix)
+    while -(-n_pix >> tile_log2) > MAX_TILES and tile_log2 < TILE_LOG2_RANGE[1]:
+        tile_log2 += 1
+    tiles = -(-n_pix >> tile_log2)
+    if tiles > MAX_TILES:
+        raise ValueError(f"zbuffer_outres: {n_pix} pixels need {tiles} tiles of "
+                         f"{1 << tile_log2}, more than {MAX_TILES}")
+    bin_blocks = -(-A // SPAN)
+    return OutresPlan(tile_log2=tile_log2, tiles=tiles, bin_blocks=bin_blocks,
+                      entries=A, starts=(tiles + 1) * bin_blocks)
+
+
+def outres_scratch(plan: OutresPlan, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The scratch that the wrapper hands the kernel: (entries, starts)."""
+    return (torch.empty(plan.entries, dtype=torch.int64, device=device),
+            torch.empty(plan.starts, dtype=torch.int32, device=device))
 
 
 def zbuffer_outres_plain(zkey: torch.Tensor, fpix: torch.Tensor, n_pix: int) -> torch.Tensor:
@@ -63,23 +145,25 @@ def zbuffer_outres_plain(zkey: torch.Tensor, fpix: torch.Tensor, n_pix: int) -> 
 def zbuffer_outres(zkey: torch.Tensor, fpix: torch.Tensor, n_pix: int,
                    entry: LaunchCount) -> torch.Tensor:
     """The z-buffer over n_pix pixels as int32[n_pix, 2] (id, key) pairs.
-    Every pixel must lie in [0, n_pix) (the entry points check it).
+    A pixel outside [0, n_pix) never writes (the entry points refuse it).
     ``entry`` is the entry point whose launch count this launch adds to."""
     if zkey.device.type == "cpu":
         return zbuffer_outres_plain(zkey, fpix, n_pix)
     A = zkey.shape[0]
-    if A >= 2**31:
-        raise ValueError(f"zbuffer_outres: {A} candidates; indices must fit in int32")
+    plan = outres_plan(A, n_pix)
     require_cuda(zkey, "zkey", torch.int32, (A,))
     require_cuda(fpix, "fpix", torch.int32, (A,))
     if fpix.device != zkey.device:
         raise ValueError(f"fpix is on {fpix.device}, zkey on {zkey.device}")
     dev = zkey.device
     out = torch.empty((n_pix, 2), dtype=torch.int32, device=dev)
+    if plan.tiles == 0:
+        return out
+    entries, starts = outres_scratch(plan, dev)
     lib = KERNEL.lib()
     with torch.cuda.device(dev):
-        rc = lib.zbuffer_outres_launch(ptr(zkey), ptr(fpix), A, n_pix, ptr(out),
-                                       stream_handle(dev))
+        rc = lib.zbuffer_outres_launch(ptr(zkey), ptr(fpix), A, n_pix, plan.tile_log2,
+                                       ptr(entries), ptr(starts), ptr(out), stream_handle(dev))
     KERNEL.check(rc)
     KERNEL.launches += 1
     entry.launches += 1

@@ -8,7 +8,10 @@ P_pad = 453,632: ``pallas_zbuf`` checked against its plain version (the
 two-pass scatter-min that the TPU probe called "xla 2-pass"; exact, or it
 raises), then the times by CUDA events of the plain version, the kernel, K1
 (ops/zbuf.py) and the library yardstick (one ``scatter_reduce`` amin of
-packed int64 words), one JSON line each.  Needs a CUDA card.
+packed int64 words), one JSON line each: ``ms`` over calls issued back to
+back (the larger of the host's and the card's time per call) and
+``ms_device`` with the calls queued behind a spin (the card's time alone).
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -48,7 +51,8 @@ def run(A: int = 1 << 20, iters: int = 20, seed: int = 0) -> list[dict]:
     for name, fn in fns.items():
         ms = cuda_ms(fn, iters)
         row = dict(case=name, P=P, P_pad=P_PAD, A=A, exact=True, ms=ms,
-                   ns_per_candidate=ms * 1e6 / A, bound_ms=bound_ms(A, P_PAD), card=card)
+                   ns_per_candidate=ms * 1e6 / A, bound_ms=bound_ms(A, P_PAD), card=card,
+                   ms_device=cuda_ms(fn, iters, hold=True))
         print(json.dumps(row), flush=True)
         rows.append(row)
     return rows

@@ -76,6 +76,36 @@ def random_candidates(rng: np.random.Generator, P: int, A: int, dev: torch.devic
     return torch.from_numpy(zkey).to(dev), torch.from_numpy(fpix).to(dev)
 
 
+INT32_MIN = -(2**31)
+ORDERS = ("random", "block", "one_tile", "signed")
+
+
+def ordered_candidates(rng: np.random.Generator, P: int, A: int, order: str,
+                       dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """A candidates over [0, P) in one of the layouts the binned z-buffer
+    (ops/zbuf_outres.py) is held to: ``random`` pixel order, keys in [0, 2^30);
+    ``block``, the same with the pixels sorted ascending, the order in which
+    the index stage hands candidates over (tools/probe_pallas_zbuf.py:10-14);
+    ``one_tile``, every pixel in [0, 1024), inside the first resolve tile
+    whatever its width, with keys in [0, 64) so that most pixels see ties;
+    ``signed``, keys over all of int32, INT32_MIN and INT32_MAX (never
+    written) among them."""
+    zkey = rng.integers(0, 1 << 30, A).astype(np.int32)
+    fpix = rng.integers(0, P, A).astype(np.int32)
+    if order == "block":
+        fpix.sort()
+    elif order == "one_tile":
+        fpix = rng.integers(0, min(P, 1024), A).astype(np.int32)
+        zkey = rng.integers(0, 64, A).astype(np.int32)
+    elif order == "signed":
+        zkey = rng.integers(INT32_MIN, INT32_MAX, A, endpoint=True).astype(np.int32)
+        zkey[::97] = INT32_MIN
+        zkey[::89] = INT32_MAX
+    elif order != "random":
+        raise ValueError(f"unknown order {order!r}; one of {ORDERS}")
+    return torch.from_numpy(zkey).to(dev), torch.from_numpy(fpix).to(dev)
+
+
 def packed_scatter_min(zkey: torch.Tensor, fpix: torch.Tensor, P: int):
     """The library yardstick: a function doing one ``scatter_reduce`` amin of
     the packed words (key << 32 | index) into P pixels (+1 spare for the

@@ -35,6 +35,7 @@ from surfelmapping_tpu_torch.ops import transforms
 from surfelmapping_tpu_torch.ops.active import table_from_map
 from surfelmapping_tpu_torch.ops.transforms import compose, invert_se3
 from surfelmapping_tpu_torch.pipeline import SurfelMapper
+from surfelmapping_tpu_torch.tools.timing import ORDERS, ordered_candidates
 
 pytestmark = pytest.mark.gpu
 
@@ -215,6 +216,73 @@ def test_outres_kernel_matches_plain(P, cuda):
     assert torch.equal(zb1.reshape(-1), ref1[:, 1]) and torch.equal(ib1.reshape(-1), ref1[:, 0])
     assert (outres.KERNEL.launches, outres.P2.launches, outres.P1.launches) == (
         before[0] + 2, before[1] + 1, before[2] + 1)
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_outres_entry_points_on_the_binned_orders(order, cuda):
+    """P1 and P2 against the plain version, exact, on chip_smoke's orders at
+    a small size: 32,768 candidates (four bin spans) over 10,317 pixels (a
+    buffer of five tiles and a ragged sixth); one launch per call."""
+    num_pix, n_pix = 10_317, outres.outres_pixels(10_317)
+    zk, fp = ordered_candidates(np.random.default_rng(1), num_pix, 4 * 8192, order, cuda)
+    ref = outres.zbuffer_outres_plain(zk, fp, n_pix)
+    before = (outres.KERNEL.launches, outres.P2.launches, outres.P1.launches)
+    zb, ib = outres.outres(zk, fp, num_pix)
+    assert torch.equal(zb, ref[:num_pix, 1]) and torch.equal(ib, ref[:num_pix, 0])
+    zb1, ib1 = outres.pallas_zbuf(zk, fp, n_pix)
+    assert torch.equal(zb1.reshape(-1), ref[:, 1]) and torch.equal(ib1.reshape(-1), ref[:, 0])
+    assert (outres.KERNEL.launches, outres.P2.launches, outres.P1.launches) == (
+        before[0] + 2, before[1] + 1, before[2] + 1)
+
+
+BINNED_CASES = ["ragged", "empty", "all_invalid", "outside", "misaligned", "many_blocks",
+                "wide_tiles"]
+
+
+@pytest.mark.parametrize("case", BINNED_CASES)
+def test_binned_kernel_edge_cases(case, cuda):
+    """The kernel through ``zbuffer_outres`` against the plain version, exact:
+    A not a multiple of a bin span (nor of 4), A = 0, every key INT32_MAX,
+    pixels outside the buffer (never written), inputs off 16-byte alignment
+    (4-byte loads), more bin blocks than a resolve block tables at once, and
+    a sparse buffer whose tiles need more than 48 KB of shared memory."""
+    n_pix, A = 5 * 2048 + 77, 4 * outres.SPAN
+    if case == "many_blocks":  # a resolve block tables 512 bin blocks' segments at once
+        A = 513 * outres.SPAN + 5
+    elif case == "wide_tiles":
+        n_pix, A = outres.MAX_TILES * 2048 + 5, 8192
+    zk, fp = ordered_candidates(np.random.default_rng(2), n_pix, A, "random", cuda)
+    valid_key, valid_pix = zk, fp
+    if case == "ragged":
+        zk, fp = zk[:A - 1000 + 3], fp[:A - 1000 + 3]
+        valid_key, valid_pix = zk, fp
+    elif case == "empty":
+        zk, fp = zk[:0], fp[:0]
+        valid_key, valid_pix = zk, fp
+    elif case == "all_invalid":
+        zk = valid_key = torch.full_like(zk, INT32_MAX)
+    elif case == "outside":
+        fp = fp.clone()
+        fp[::5], fp[1::7] = -1, n_pix + 3
+        outside = (fp < 0) | (fp >= n_pix)
+        valid_key = torch.where(outside, INT32_MAX, zk)
+        valid_pix = torch.where(outside, n_pix, fp)
+    elif case == "misaligned":
+        zk, fp = (torch.cat([t[:1], t])[1:] for t in (zk, fp))
+        assert zk.data_ptr() % 16 and fp.data_ptr() % 16
+        valid_key, valid_pix = zk, fp
+    plan = outres.outres_plan(zk.shape[0], n_pix)
+    if case == "wide_tiles":  # more than the 48 KB a launch gets without asking
+        assert plan.tile_smem > 48 * 1024
+    if case == "many_blocks":
+        assert plan.bin_blocks > 512
+    before = (outres.KERNEL.launches, outres.P2.launches)
+    got = outres.zbuffer_outres(zk, fp, n_pix, outres.P2)
+    assert (outres.KERNEL.launches, outres.P2.launches) == (before[0] + 1, before[1] + 1)
+    ref = outres.zbuffer_outres_plain(valid_key, valid_pix, n_pix)
+    assert torch.equal(got, ref)
+    if case in ("empty", "all_invalid"):
+        assert (got == INT32_MAX).all()
 
 
 def test_outres_wrapper_rejects_bad_inputs(cuda):

@@ -228,3 +228,56 @@ def test_probe_entry_points_refuse_what_the_tpu_kernel_would_not_compute(entry):
         fpix[5] = bad
         with pytest.raises(ValueError, match="outside the buffer"):
             call(ok, fpix)
+
+
+# ---- the binned kernel's plan ----------------------------------------------
+#
+# csrc/zbuffer_outres.cu runs only on the card; its sizes come from
+# ``outres_plan``, and the wrapper allocates its scratch from the plan.
+
+PLAN_CASES = {
+    "P1": (1 << 20, 453_632),
+    "P2": (1 << 20, zbuf_outres.outres_pixels(4 * 453_620)),
+    "ragged_pixels": (4096, 5 * 1024 + 77),
+    "a_zero": (0, 453_632),
+    "a_one": (1, 453_632),
+}
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_outres_plan(case):
+    """The tiles cover n_pix exactly (the last one ragged where T does not
+    divide it); each block's shared memory fits the H100's 227 KB; the
+    probes' shapes give at least one tile per SM (132); the scratch is what
+    the plan says."""
+    A, n_pix = PLAN_CASES[case]
+    plan = zbuf_outres.outres_plan(A, n_pix)
+    T = plan.tile
+    assert (plan.tiles - 1) * T < n_pix <= plan.tiles * T
+    assert (n_pix % T != 0) == (case == "ragged_pixels")
+    assert zbuf_outres.TILE_LOG2_RANGE[0] <= plan.tile_log2 <= zbuf_outres.TILE_LOG2_RANGE[1]
+    assert max(plan.bin_smem, plan.tile_smem) <= zbuf_outres.SMEM_PER_BLOCK
+    span = zbuf_outres.SPAN
+    assert (plan.bin_blocks - 1) * span < A <= plan.bin_blocks * span or A == 0 == plan.bin_blocks
+    if case in ("P1", "P2"):
+        assert plan.tiles >= 132
+        assert plan.tile == (1024 if case == "P1" else 4096)   # ~2048 candidates per tile
+    entries, starts = zbuf_outres.outres_scratch(plan, "cpu")
+    assert entries.dtype == torch.int64 and entries.shape == (plan.entries,) == (A,)
+    assert starts.dtype == torch.int32
+    assert starts.shape == (plan.starts,) == ((plan.tiles + 1) * plan.bin_blocks,)
+
+
+def test_outres_plan_limits():
+    """A dense buffer's tile (1024 pixels at 2^30 candidates) is widened
+    while the pixels need more than MAX_TILES tiles; sizes the kernel cannot
+    take raise."""
+    n_pix = zbuf_outres.MAX_TILES * 1024 + 1
+    assert zbuf_outres.default_tile_log2(2**30, n_pix) == 10
+    assert zbuf_outres.outres_plan(2**30, n_pix).tile_log2 == 11
+    with pytest.raises(ValueError, match="tiles"):
+        zbuf_outres.outres_plan(8, zbuf_outres.MAX_TILES * (1 << 14) + 1)
+    with pytest.raises(ValueError, match="int32"):
+        zbuf_outres.outres_plan(2**31, 4096)
+    with pytest.raises(ValueError, match="int32"):
+        zbuf_outres.outres_plan(8, 2**31)
