@@ -69,7 +69,18 @@ Phases, each printed as one JSON line:
            float32 bound (FLOPs from the layer shapes), launches, memory,
            the card's idle share and top kernels over 4 frames of the chain,
            and the host ms of each step's profiler range
-Each path (main, render, probes, icp_ba, spade) is driven with every launch
+  small_spade_train  one D step and one G step (ngf 16, crop 64, batch 2,
+           num_d 2, n_layers_d 4, VGG on; without and with the VAE) on the
+           card vs the CPU from the same variables and batch: losses within
+           1e-4 relative, stored SN u/sigma and BN statistics within 1e-5,
+           gradients (Adam's mu) within 1e-4 of each leaf, in float64
+  spade_train  SPADE training at the CLI's defaults (ngf 64, crop 256,
+           batch 1, VGG on) on 12 K1 renders of the main map paired with
+           the scene's RGB: spade_train for 2 epochs x 10 steps, a resume,
+           spade_test from the checkpoint; wall ms per iteration, each
+           step's card ms and launches vs its float32 bound, idle share,
+           memory, first and last losses
+Each path (main, render, probes, icp_ba, spade, spade_train) is driven with every launch
 count set to 0 just before it and read just after.  Kernel times are by CUDA events
 (tools/timing.py), warm in L2: ``ms`` and ``library_ms`` over calls issued
 back to back (the larger of the host's and the card's time per call);
@@ -88,6 +99,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -99,11 +111,20 @@ import numpy as np
 import torch
 
 # the port itself: in a directory without it this import fails
+from surfelmapping_tpu_torch.tools.compare import (flat, float32_gradients_held, gap_summary,
+                                                   grad_gaps)
 from surfelmapping_tpu_torch.tools.timing import HBM_BYTES_PER_S, cuda_ms, cuda_ms_cold
 from surfelmapping_tpu_torch.tools.timing import card_line as smi_line
 
 SEED = 0
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+TRAIN_WARM, TRAIN_TIMED = 4, 64  # spade_train: iterations before and in its timed window (even)
+# spade_train's kernels by kind, the first pattern that matches a kernel's name: cuDNN's
+# direct and implicit-GEMM convolutions, its FFT convolutions (the transforms and the
+# complex float2 GEMVs between them), real GEMVs (the spectral norms' power steps)
+TRAIN_KERNEL_GROUPS = (("fft_conv", r"fft|float2"),
+                       ("conv_gemm", r"conv|gemm|cudnn|cutlass|sm80_|sm90_|xmma|winograd"),
+                       ("gemv", r"gemv"))
 INT32_MAX = 2**31 - 1
 
 
@@ -952,13 +973,10 @@ def phase_small_spade(dev) -> None:
     emit("small_spade", **res, nearest_ratios_equal=len(pairs))
 
 
-def generator_flops(cfg, H: int, W: int) -> int:
-    """Floating-point operations (2 per multiply-add) of the generator's
-    convolutions and dense layers on one H x W label, counted from the layer
-    shapes on the meta device."""
-    from surfelmapping_tpu_torch.models.spade import build_modules
-
-    gen, _ = build_modules(cfg, "meta")
+def layer_flops(module: torch.nn.Module, forward) -> int:
+    """Floating-point operations (2 per multiply-add) of ``module``'s
+    convolutions and dense layers in ``forward()``, counted from the layer
+    shapes (run it on the meta device)."""
     macs = 0
 
     def count(mod, _, out):
@@ -968,11 +986,46 @@ def generator_flops(cfg, H: int, W: int) -> int:
         else:
             macs += out.numel() * mod.in_features
 
-    for m in gen.modules():
-        if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
-            m.register_forward_hook(count)
-    gen.logits(torch.empty(1, 3, H, W, device="meta"))
+    hooks = [m.register_forward_hook(count) for m in module.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    forward()
+    for h in hooks:
+        h.remove()
     return 2 * macs
+
+
+def generator_flops(cfg, H: int, W: int) -> int:
+    """The generator's FLOPs on one H x W label."""
+    from surfelmapping_tpu_torch.models.spade import build_modules
+
+    gen, _ = build_modules(cfg, "meta")
+    return layer_flops(gen, lambda: gen.logits(torch.empty(1, 3, H, W, device="meta")))
+
+
+def train_step_flops(cfg, batch: int) -> dict:
+    """Float32 FLOPs of one D step and one G step at ``cfg.crop_size``,
+    from the layer shapes: a forward that takes no gradient counts once; a
+    backward costs a forward for the gradient of the layer's input and one
+    for its weights.  D step: G forward + D forward and both backwards on
+    the 2B fake+real batch.  G step: G (and encoder) forward and both
+    backwards, D forward and its input gradient on the 2B batch, VGG19's
+    forward and input gradient on the fake, its forward on the real."""
+    from surfelmapping_tpu_torch.models.losses import VGG19Features
+    from surfelmapping_tpu_torch.models.pix2pix import discriminator
+    from surfelmapping_tpu_torch.models.spade import build_modules
+
+    B, S = batch, cfg.crop_size
+    img = lambda n, c=3: torch.empty(n, c, S, S, device="meta")  # noqa: E731
+    gen, enc = build_modules(cfg, "meta")
+    z = torch.empty(B, cfg.z_dim, device="meta") if enc is not None else None
+    g = layer_flops(gen, lambda: gen.logits(img(B), z))
+    e = layer_flops(enc, lambda: enc(img(B))) if enc is not None else 0
+    d_mod = discriminator(cfg, "meta")
+    d = layer_flops(d_mod, lambda: d_mod(img(2 * B, 6)))
+    vgg = VGG19Features("meta")
+    v = layer_flops(vgg, lambda: vgg(img(B))) if cfg.use_vgg else 0
+    return {"d_step": g + e + 3 * d, "g_step": 3 * (g + e) + 2 * d + 3 * v,
+            "generator": g, "encoder": e, "discriminator": d, "vgg19": v}
 
 
 class RecordingModel:
@@ -1106,6 +1159,279 @@ def phase_spade(dev, mapper, views, counters, smi: str) -> dict:
     return {"zbuffer_argmin": k1}
 
 
+def spread(ms: list) -> dict:
+    """Percentiles of a list of times."""
+    q = statistics.quantiles(ms, n=10)
+    return dict(min=min(ms), p10=q[0], median=statistics.median(ms), p90=q[-1], max=max(ms),
+                stdev=statistics.stdev(ms))
+
+
+def host_cpu() -> dict:
+    """The host's CPU, the cores this process may run on and the load
+    average, for host-clock numbers read across machines: /proc/cpuinfo's
+    first processor (model name or vendor, family, model, clock), lscpu's
+    model name where lscpu exists, and the widest vector ISA PyTorch's CPU
+    kernels use."""
+    keys = ("model name", "vendor_id", "cpu family", "model", "stepping", "cpu MHz")
+    info = {}
+    try:
+        for ln in Path("/proc/cpuinfo").read_text().split("\n\n")[0].splitlines():
+            k, _, v = ln.partition(":")
+            if k.strip() in keys:
+                info[k.strip()] = v.strip()
+    except OSError:
+        pass
+    model = None
+    try:
+        lscpu = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=10).stdout
+        model = next((ln.split(":", 1)[1].strip() for ln in lscpu.splitlines()
+                      if ln.startswith("Model name")), None)
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return dict(cpuinfo=info, lscpu_model=model, isa=torch.backends.cpu.get_cpu_capability(),
+                cores=len(os.sched_getaffinity(0)), loadavg=os.getloadavg())
+
+
+def phase_small_spade_train(dev) -> None:
+    """One D step and one G step of the GAN, each from the same converted
+    variables (seeded init, random BN running statistics) and the same
+    batch, on the card and on the CPU: ngf 16, ndf 16, crop 64, batch 2,
+    num_d 2, n_layers_d 4, VGG19 on (random init); without and with the
+    VAE (fixed noise).  Held, in float32 (the path that ships): the losses
+    within 1e-4 relative; the SN u and sigma and the BN running statistics
+    the step stored within 1e-5 of each array's largest magnitude; the
+    gradients (Adam's mu after the step, b1 = 0) within 1e-3 of each
+    leaf's scale (compare.grad_gaps), the VAE's G step as
+    compare.float32_gradients_held says (a rounding flips a choice ahead
+    of its losses on the H100, and every generator leaf moves).  Held in float64
+    (TrainState.to), where no rounding flips a choice: the losses within
+    1e-4 relative and the gradients within 1e-9 of each leaf's scale."""
+    from surfelmapping_tpu_torch.models.pix2pix import (SpadeConfig, SpadeTrainer,
+                                                        init_state_numpy)
+
+    rng = np.random.default_rng(SEED)
+    res = {}
+    for use_vae in (False, True):
+        cfg = SpadeConfig(ngf=16, ndf=16, crop_size=64, num_d=2, n_layers_d=4, use_vae=use_vae)
+        tree = init_state_numpy(cfg)
+        random_bn_stats(tree["g_batch_stats"], rng)
+        label, real = (torch.from_numpy(rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32))
+                       for _ in range(2))
+        noise = torch.from_numpy(rng.normal(0, 1, (2, cfg.z_dim))) if use_vae else None
+        out = {}
+        for dtype in (torch.float32, torch.float64):
+            for where, d in (("card", dev), ("cpu", "cpu")):
+                for step in ("d_step", "g_step"):
+                    tr = SpadeTrainer(cfg, device=d)
+                    st, logs = getattr(tr, step)(tr.state_from_numpy(tree).to(dtype),
+                                                 label.to(dtype), real.to(dtype), noise=noise)
+                    out[dtype, where, step] = (tr.state_to_numpy(st),
+                                               {k: float(v) for k, v in logs.items()})
+        case = {}
+        for step, net in (("d_step", "d"), ("g_step", "g")):
+            r = {}
+            for dtype in (torch.float32, torch.float64):
+                (card, card_logs), (cpu, cpu_logs) = (out[dtype, w, step] for w in ("card", "cpu"))
+                name = str(dtype)[6:]
+                r[f"loss_rel_err_{name}"] = max(abs(card_logs[k] - cpu_logs[k]) / abs(cpu_logs[k])
+                                                for k in cpu_logs)
+                r[f"grad_{name}"] = gap_summary(
+                    grad_gaps(*(t[f"{net}_opt"]["inner_state"]["0"]["mu"] for t in (card, cpu))))
+                st_card, st_cpu = (flat(t[f"{net}_batch_stats"]) for t in (card, cpu))
+                r[f"stored_err_{name}"] = max(
+                    float(np.abs(st_card[k] - st_cpu[k]).max())
+                    / max(float(np.abs(st_cpu[k]).max()), 1e-30) for k in st_cpu)
+                r[f"finite_{name}"] = all(math.isfinite(v) for v in card_logs.values())
+            r["losses"] = out[torch.float32, "card", step][1]
+            case[step] = r
+            if not (r["finite_float32"] and r["finite_float64"]
+                    and r["loss_rel_err_float32"] <= 1e-4 and r["loss_rel_err_float64"] <= 1e-4
+                    and r["stored_err_float32"] <= 1e-5
+                    and float32_gradients_held(r["grad_float32"], use_vae and net == "g")
+                    and r["grad_float64"]["max"] <= 1e-9):
+                emit("small_spade_train", **res, failed={"vae" if use_vae else "plain": case})
+                raise AssertionError(f"small_spade_train: {'vae' if use_vae else 'plain'} {step} "
+                                     f"card vs CPU out of tolerance {r}")
+        res["vae" if use_vae else "plain"] = case
+    emit("small_spade_train", **res)
+
+
+def phase_spade_train(dev, mapper, scene, counters, smi: str) -> dict:
+    """SPADE training at the JAX CLI's defaults (ngf 64, ndf 64, crop 256,
+    batch 1, num_d 2, n_layers_d 4, VGG19 on with random init, d_steps_per_g
+    2) on views of the main phase's map: render_view (K1) -> the u8 label
+    (views.render_u8) at the poses of 12 of its fused frames, the scene's
+    RGB there as the real images, both as PNGs.  Then the port's spade_train
+    CLI for 2 epochs x 10 steps, a resume with --continue-train for one
+    more epoch of decay (epochs 2 and 3 from the cursor iter.txt records),
+    and spade_test on one view from the written checkpoint.  Held: every
+    loss finite, the G and D params moved, the checkpoint read back bit for
+    bit, the enhanced frame keeps the rendered pixels where the semantic is
+    not 0.  Measured on the resumed state, in the CLI's pattern (a D step
+    each iteration, a G step every second): the wall ms per iteration over
+    TRAIN_TIMED iterations after TRAIN_WARM, with its spread, its two
+    halves and the host's time to enqueue an iteration (the host's CPU
+    model beside them), each step's card time and launches from the
+    profiler, the card's idle share (card ms per iteration over wall ms),
+    each step's float32 bound (train_step_flops over 67 TFLOP/s), the
+    kernels of one iteration with a G step (the top ten, and the card time
+    and launches of each TRAIN_KERNEL_GROUPS kind),
+    peak memory, and the losses of the first and last logged iterations."""
+    import tempfile
+
+    from PIL import Image
+
+    from surfelmapping_tpu_torch import spade_test, spade_train
+    from surfelmapping_tpu_torch.models.checkpoint import load_train_state, packb
+    from surfelmapping_tpu_torch.models.data import PairedRenderDataset
+    from surfelmapping_tpu_torch.models.pix2pix import (SpadeConfig, SpadeTrainer,
+                                                        init_state_numpy)
+    from surfelmapping_tpu_torch.ops.splat import render_view
+    from surfelmapping_tpu_torch.views import render_u8
+
+    cfg = SpadeConfig()  # the CLI's defaults: ngf 64, ndf 64, crop 256, num_d 2, 4 layers
+    ids = list(range(4, 100, 8))  # 12 fused frames
+    reset_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    res = {"card": smi, "frames": ids}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        dirs = {k: root / k for k in ("label", "image", "semantic", "enhanced")}
+        for d in list(dirs.values())[:3]:
+            d.mkdir()
+        t0 = time.perf_counter()
+        for i in ids:
+            rgb, _, _, pose = scene.frame(i)
+            label, sem = (t.cpu().numpy() for t in render_u8(render_view(mapper.smap, pose,
+                                                                         mapper.cam)))
+            name = f"{i:06d}.png"
+            Image.fromarray(label).save(dirs["label"] / name)
+            Image.fromarray(sem).save(dirs["semantic"] / name)
+            Image.fromarray(rgb).save(dirs["image"] / name)
+        res["render_s"] = time.perf_counter() - t0
+        ckpt = root / "ckpt"
+        argv = ["--label-dir", str(dirs["label"]), "--image-dir", str(dirs["image"]),
+                "--niter", "1", "--niter-decay", "1", "--steps-per-epoch", "10",
+                "--log-every", "1", "--display-every", "10", "--ckpt-dir", str(ckpt)]
+        for run, extra in (("train", []), ("resume", ["--continue-train"])):
+            if run == "resume":
+                argv[argv.index("--niter-decay") + 1] = "2"
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as log:
+                rc = spade_train.main(argv + extra)
+            torch.cuda.synchronize()
+            res[f"{run}_s"] = time.perf_counter() - t0
+            if rc != 0 or (run == "resume" and "restored checkpoint" not in log.getvalue()):
+                raise AssertionError(f"spade_train: the {run} run failed (rc {rc})")
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        lines = [ln for ln in (ckpt / "loss_log.txt").read_text().splitlines()
+                 if ln.startswith("(epoch")]
+        losses = [{k.rstrip(":"): float(v) for k, v in zip(ln.split(")")[1].split()[::2],
+                                                          ln.split(")")[1].split()[1::2])}
+                  for ln in lines]
+        res.update(logged_iterations=len(losses), first_losses=losses[0], last_losses=losses[-1],
+                   last_g_losses=[d for d in losses if "g_total" in d][-1])
+        finite = all(math.isfinite(v) for d in losses for v in d.values())
+
+        raw = (ckpt / "latest.msgpack").read_bytes()
+        res["checkpoint_bytes"] = len(raw)
+        trainer = SpadeTrainer(cfg)  # the card
+        state = trainer.state_from_numpy(load_train_state(str(ckpt / "latest.msgpack")))
+        round_trip = packb(trainer.state_to_numpy(state)) == raw
+        init = init_state_numpy(cfg)  # the CLI's init
+        moved = {net: sum(not np.array_equal(a, flat(init[f"{net}_params"])[k])
+                          for k, a in flat(load_train_state(str(ckpt / "latest.msgpack"))
+                                           [f"{net}_params"]).items())
+                 for net in ("g", "d")}
+        del raw
+        res.update(params_moved=moved, checkpoint_round_trip=round_trip, step=state.step,
+                   g_adam_count=state.g_opt.count, d_adam_count=state.d_opt.count)
+
+        ds = PairedRenderDataset(str(dirs["label"]), str(dirs["image"]), crop_size=cfg.crop_size,
+                                 load_size=int(cfg.crop_size * 1.12), seed=1)
+        batches = [tuple(torch.from_numpy(a) for a in b)
+                   for b in ds.batches(1, TRAIN_WARM + TRAIN_TIMED)]
+
+        def iteration(i, lab, img):
+            trainer.d_step(state, lab, img)
+            if i % 2 == 0:
+                trainer.g_step(state, lab, img)
+
+        wall, host = [], []
+        for i, (lab, img) in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            iteration(i, lab, img)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            host.append((t1 - t0) * 1e3)
+            wall.append((time.perf_counter() - t0) * 1e3)
+        wall, host = wall[TRAIN_WARM:], host[TRAIN_WARM:]
+        lab, img = batches[0]
+        d_launch, d_ms = device_profile(lambda: trainer.d_step(state, lab, img), calls=3)
+        g_launch, g_ms = device_profile(lambda: trainer.g_step(state, lab, img), calls=3)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            iteration(0, lab, img)  # a D step and a G step
+            torch.cuda.synchronize()
+        kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                          for e in device_events(prof)), key=lambda k: -k[1])
+        groups = {}
+        for k, t, c in kernels:
+            g = next((g for g, pat in TRAIN_KERNEL_GROUPS if re.search(pat, k, re.I)), "other")
+            ms, n = groups.get(g, (0.0, 0))
+            groups[g] = (ms + t, n + c)
+        res["d_and_g_step_kernels"] = dict(
+            device_ms=sum(k[1] for k in kernels), launches=sum(k[2] for k in kernels),
+            groups={g: dict(device_ms=t, launches=n) for g, (t, n) in groups.items()},
+            top=[dict(name=k[:100], device_ms=t, launches=c) for k, t, c in kernels[:10]])
+        flops = train_step_flops(cfg, 1)
+        busy = d_ms + g_ms / 2
+        wall_ms = statistics.mean(wall)
+        half = len(wall) // 2
+        res.update(
+            host_cpu=host_cpu(), timed_iterations=len(wall),
+            wall_ms_per_iteration=wall_ms, wall_ms_spread=spread(wall),
+            wall_ms_per_iteration_halves=[statistics.mean(wall[:half]),
+                                          statistics.mean(wall[half:])],
+            wall_ms_with_g_step=spread(wall[::2]), wall_ms_d_step_only=spread(wall[1::2]),
+            host_ms_per_iteration=statistics.mean(host), host_ms_spread=spread(host),
+            iterations_per_s=1e3 / wall_ms, d_step_ms_device=d_ms, g_step_ms_device=g_ms,
+            d_step_launches=d_launch, g_step_launches=g_launch,
+            launches_per_iteration=d_launch + g_launch / 2,
+            host_us_per_launch=statistics.mean(host) * 1e3 / (d_launch + g_launch / 2),
+            flops=flops,
+            d_step_f32_bound_ms=flops["d_step"] / F32_OPS_PER_S * 1e3,
+            g_step_f32_bound_ms=flops["g_step"] / F32_OPS_PER_S * 1e3,
+            share_of_f32_bound=(flops["d_step"] + flops["g_step"]) / F32_OPS_PER_S * 1e3
+            / (d_ms + g_ms),
+            device_busy_ms_per_iteration=busy, device_idle_share=max(0.0, 1.0 - busy / wall_ms),
+            cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+        del trainer, state
+
+        name = f"{ids[0]:06d}.png"
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = spade_test.main(["--ckpt", str(ckpt / "latest.msgpack"), "--label-dir",
+                                  str(dirs["label"]), "--semantic-dir", str(dirs["semantic"]),
+                                  "--out", str(dirs["enhanced"]), "--limit", "1"])
+        final, label, sem = (np.asarray(Image.open(dirs[k] / name))
+                             for k in ("enhanced", "label", "semantic"))
+        kept = bool(rc == 0 and final.shape == label.shape
+                    and np.array_equal(final[sem != 0], label[sem != 0]))
+        res.update(enhanced=name, hole_share=float((sem == 0).mean()), rendered_pixels_kept=kept)
+    launches = read_counts(counters)
+    res["launches"] = launches
+    emit("spade_train", **res)
+    if not (finite and moved["g"] and moved["d"] and round_trip and kept):
+        raise AssertionError(f"spade_train: losses finite {finite}, params moved {moved}, "
+                             f"checkpoint round trip {round_trip}, rendered pixels kept {kept}")
+    if launches["zbuffer_argmin"] < len(ids):
+        raise AssertionError(f"spade_train: K1 launched {launches['zbuffer_argmin']} times "
+                             f"for {len(ids)} labels")
+    return {"zbuffer_argmin": launches["zbuffer_argmin"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1152,11 +1478,13 @@ def main() -> int:
     phase_render_holds(dev, mapper, scene, views[0], per_view[0]["n_active_blocks"], zbuf_mod)
     phase_small_spade(dev)
     enhance = phase_spade(dev, mapper, views, counters, smi)
+    phase_small_spade_train(dev)
+    training = phase_spade_train(dev, mapper, scene, counters, smi)
     probes = phase_probes(counters)
     tracking, (icp_mapper, icp_pose) = phase_icp_ba(dev, counters, smi)
     phase_icp_holds(dev, icp_mapper, icp_pose, zbuf_mod)
     emit("paths", launches=dict(main=fusion, render=render, probes=probes, icp_ba=tracking,
-                                spade=enhance))
+                                spade=enhance, spade_train=training))
 
     k1i, k1r = k1["index"], k1["render"]
     table = [
@@ -1164,7 +1492,8 @@ def main() -> int:
         dict(name="zbuffer_argmin", route="cuda", source=zbuf_mod.KERNEL.repo_source,
              replaces="surfelmapping_tpu/ops/pallas_zbuf.py:188",
              launches=(fusion["zbuffer_argmin"] + render["zbuffer_argmin"]
-                       + tracking["zbuffer_argmin"] + enhance["zbuffer_argmin"]),
+                       + tracking["zbuffer_argmin"] + enhance["zbuffer_argmin"]
+                       + training["zbuffer_argmin"]),
              max_abs_err=max(k1i["max_abs_err"], k1r["max_abs_err"]),
              ms=k1i["ms"], plain_ms=k1i["plain_ms"], bound_ms=k1i["bound_ms"],
              bound_by="bytes", library_ms=k1i["library_ms"], ms_device=k1i["ms_device"],

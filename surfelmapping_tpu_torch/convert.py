@@ -6,9 +6,10 @@ table and a BA window.  Columns are read out of the JAX dataclasses with
 ``np.asarray``; a float32 ``colorsem`` column becomes the port's int32 bits
 by ``.view``, never by arithmetic, so subnormal colors survive.
 
-The SPADE enhancer's weights carry over as flax variables: nested dicts of
-numpy arrays, ``{"params": ..., "batch_stats": ...}``.  :func:`flax_layout`
-is the one place where the port's tensors are named after flax's.
+The SPADE GAN's weights carry over as flax variables, in both directions:
+nested dicts of numpy arrays, ``{"params": ..., "batch_stats": ...}``.
+:func:`flax_layout` is the one place where the port's tensors are named
+after flax's.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 import torch.nn as nn
 
 from .ba import BAWindow
-from .models.spade import SPADENorm, build_modules, spectral_normalize
+from .models.spade import SNConv2d, SPADENorm, build_modules, spectral_normalize
 from .ops.active import ActiveTable
 from .surfels import COLUMNS, SurfelMap, empty_map
 
@@ -105,8 +106,8 @@ _TRUNC_STD = 0.87962566103423978
 @dataclasses.dataclass(frozen=True)
 class FlaxSlot:
     """One flax variable of a port module: the module's state_dict ``key``
-    that it fills (None for the spectral-norm state), its ``collection``
-    and ``path`` in the flax tree, its ``shape`` there, and its ``kind``
+    that it fills, its ``collection`` and ``path`` in the flax tree, its
+    ``shape`` there, and its ``kind``
     (conv: HWIO kernel of an OIHW weight; dense: (in, out) kernel of an
     (out, in) weight; bias; mean and var of a SPADE norm; u and sigma of a
     SpectralNorm).  A spectral-normed kernel also names its ``u_path``."""
@@ -120,24 +121,25 @@ class FlaxSlot:
 
 
 def flax_layout(module: nn.Module) -> list[FlaxSlot]:
-    """Every flax variable of ``module`` (a models.spade module, on any
-    device).  The port's submodules carry the flax names, so a module path
-    is a flax path; a spectral-normed conv's state lives in its parent's
-    ``SpectralNorm_<k>`` under ``<conv>/kernel/{u,sigma}``, k its place in
-    the parent's ``SN_CONVS``."""
+    """Every flax variable of ``module`` (a models.spade or models.losses
+    module, or an ``nn.ModuleDict`` of them, on any device).  The port's
+    submodules carry the flax names, so a module path is a flax path; a
+    spectral-normed conv's state lives in its parent's ``SpectralNorm_<k>``
+    under ``<conv>/kernel/{u,sigma}``, k its place in the parent's
+    ``SN_CONVS``."""
     slots = []
     for name, mod in module.named_modules():
         path = tuple(name.split(".")) if name else ()
         if isinstance(mod, (nn.Conv2d, nn.Linear)):
             w = mod.weight
             u_path = None
-            parent = module.get_submodule(".".join(path[:-1]))
-            if path[-1] in getattr(parent, "SN_CONVS", ()):
+            if isinstance(mod, SNConv2d):
+                parent = module.get_submodule(".".join(path[:-1]))
                 sn = path[:-1] + (f"SpectralNorm_{parent.SN_CONVS.index(path[-1])}",)
                 u_path = sn + (f"{path[-1]}/kernel/u",)
-                slots += [FlaxSlot(None, "batch_stats", u_path, (1, w.shape[0]), "u"),
-                          FlaxSlot(None, "batch_stats", sn + (f"{path[-1]}/kernel/sigma",), (),
-                                   "sigma")]
+                slots += [FlaxSlot(f"{name}.u", "batch_stats", u_path, (1, w.shape[0]), "u"),
+                          FlaxSlot(f"{name}.sigma", "batch_stats",
+                                   sn + (f"{path[-1]}/kernel/sigma",), (), "sigma")]
             if isinstance(mod, nn.Conv2d):
                 slots.append(FlaxSlot(f"{name}.weight", "params", path + ("kernel",),
                                       tuple(w.shape[2:]) + (w.shape[1], w.shape[0]), "conv",
@@ -182,16 +184,18 @@ def init_numpy(module: nn.Module, gen: torch.Generator) -> dict:
     return tree
 
 
-def load_numpy(module: nn.Module, variables: dict, device: torch.device | str) -> nn.Module:
-    """``module`` (built on the meta device) with its weights from the flax
-    ``variables``, on ``device``, in eval mode.  Spectral-normed kernels are
-    divided by their sigma here, once."""
+def torch_tensors(module: nn.Module, variables: dict, normalize: bool = False,
+                  collections: tuple[str, ...] = ("params", "batch_stats")
+                  ) -> dict[str, torch.Tensor]:
+    """``module``'s state_dict entries of the given flax ``collections``
+    from the flax ``variables``, in the port's layout, on the CPU.  With
+    ``normalize``, spectral-normed kernels come divided by their sigma."""
     state = {}
     for s in flax_layout(module):
-        if s.key is None:
+        if s.collection not in collections:
             continue
         a = torch.from_numpy(np.array(_leaf(variables[s.collection], s.path), np.float32))
-        if s.u_path is not None:
+        if normalize and s.u_path is not None:
             u = torch.from_numpy(np.array(_leaf(variables["batch_stats"], s.u_path), np.float32))
             a = spectral_normalize(a, u)
         if s.kind == "conv":
@@ -199,8 +203,47 @@ def load_numpy(module: nn.Module, variables: dict, device: torch.device | str) -
         elif s.kind == "dense":
             a = a.T
         state[s.key] = a.contiguous()
-    module.load_state_dict(state, strict=True, assign=True)
-    return module.to(device).requires_grad_(False).eval()
+    return state
+
+
+def load_numpy(module: nn.Module, variables: dict, device: torch.device | str,
+               trainable: bool = False) -> nn.Module:
+    """``module`` (built on the meta device) with its weights from the flax
+    ``variables``, on ``device``, in eval mode.  For inference (the
+    default) spectral-normed kernels are divided by their sigma here, once,
+    and no parameter takes a gradient; ``trainable`` keeps the raw kernels,
+    whose convolutions then normalize on every call (``SNConv2d``)."""
+    module.load_state_dict(torch_tensors(module, variables, normalize=not trainable),
+                           strict=True, assign=True)
+    for m in module.modules():
+        if isinstance(m, SNConv2d):
+            m.normalized = not trainable
+    return module.to(device).requires_grad_(trainable).eval()
+
+
+def to_numpy(module: nn.Module, tensors: dict[str, torch.Tensor] | None = None,
+             collections: tuple[str, ...] = ("params", "batch_stats")) -> dict:
+    """Flax variables of the given ``collections`` from a trainable
+    ``module``'s state (or from ``tensors``, keyed and shaped as its
+    state_dict: an optimizer's moments), in flax's layout, as numpy."""
+    if any(isinstance(m, SNConv2d) and m.normalized for m in module.modules()):
+        raise ValueError("to_numpy: a spectral-normed kernel was divided by its sigma at "
+                         "load; load the module with trainable=True")
+    tensors = module.state_dict() if tensors is None else tensors
+    tree: dict = {c: {} for c in collections}
+    for s in flax_layout(module):
+        if s.collection not in collections:
+            continue
+        a = tensors[s.key].detach()
+        if s.kind == "conv":
+            a = a.permute(2, 3, 1, 0)
+        elif s.kind == "dense":
+            a = a.T
+        node = tree[s.collection]
+        for k in s.path[:-1]:
+            node = node.setdefault(k, {})
+        node[s.path[-1]] = a.cpu().contiguous().numpy()
+    return tree
 
 
 def spade_from_numpy(variables: dict, cfg, device: torch.device | str):

@@ -1,4 +1,5 @@
-"""Read the JAX package's SPADE checkpoints without flax or msgpack.
+"""Read and write SPADE checkpoints in the JAX package's format, without
+flax or msgpack.
 
 ``spade_train.py`` writes ``flax.serialization.to_bytes`` of the whole
 TrainState: a msgpack map whose arrays are ext type 1, themselves a msgpack
@@ -7,11 +8,14 @@ ext type 3 of the same triple.  :func:`unpackb` decodes exactly that subset
 of msgpack (maps, arrays, str/bin, ints, floats, nil/bool and those two ext
 types) and raises on anything else, including flax's chunked form of an
 array over 2^30 bytes (the largest full-width kernel is ~38 MB).
-Arrays are read-only numpy views of the input bytes.
+Arrays are read-only numpy views of the input bytes.  :func:`packb` writes
+the same subset with msgpack's smallest encodings, as flax's
+``msgpack_serialize`` does.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 
 import numpy as np
@@ -122,3 +126,82 @@ def load_generator_variables(path: str) -> dict:
     with open(path, "rb") as f:
         state = unpackb(f.read())
     return {"params": state["g_params"], "batch_stats": state["g_batch_stats"]}
+
+
+MAX_ARRAY_BYTES = 1 << 30  # flax chunks larger arrays; the writer refuses them
+
+
+def _head(n: int, fix: int | None, fixmax: int, codes: tuple[int, ...]) -> bytes:
+    """A length header: the fix form up to ``fixmax``, else the 8-bit (where
+    ``codes`` has three), 16-bit or 32-bit form."""
+    if fix is not None and n <= fixmax:
+        return bytes([fix | n])
+    for code, fmt in zip(codes, (">B", ">H", ">I")[-len(codes):]):
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError("msgpack: object too large")
+
+
+def _int(x: int) -> bytes:
+    if 0 <= x <= 0x7F or -32 <= x < 0:
+        return struct.pack(">b" if x < 0 else ">B", x)
+    forms = ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")) if x >= 0 else \
+        ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"), (0xD3, ">q"))
+    for code, fmt in forms:
+        bits = 8 * struct.calcsize(fmt)
+        if (x < 1 << bits) if x >= 0 else (x >= -(1 << (bits - 1))):
+            return bytes([code]) + struct.pack(fmt, x)
+    raise ValueError(f"msgpack: integer {x} out of range")
+
+
+def _ext(code: int, payload: bytes) -> bytes:
+    n = len(payload)
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    head = bytes([fixed[n]]) if n in fixed else _head(n, None, -1, (0xC7, 0xC8, 0xC9))
+    return head + struct.pack(">b", code) + payload
+
+
+def packb(obj) -> bytes:
+    """msgpack bytes of a tree of dicts (str keys), lists, str, bytes, bool,
+    None, Python ints and floats, numpy arrays (ext 1) and numpy scalars
+    (ext 3): the bytes ``flax.serialization.msgpack_serialize`` writes,
+    which orders each map's keys as JAX's tree functions sort them."""
+    if isinstance(obj, dict):
+        return _head(len(obj), 0x80, 15, (0xDE, 0xDF)) + b"".join(
+            packb(k) + packb(obj[k]) for k in sorted(obj))
+    if isinstance(obj, (list, tuple)):
+        return _head(len(obj), 0x90, 15, (0xDC, 0xDD)) + b"".join(map(packb, obj))
+    if isinstance(obj, (np.ndarray, np.generic)):
+        a = np.asarray(obj)
+        if a.nbytes >= MAX_ARRAY_BYTES:
+            raise ValueError("msgpack: arrays of 2^30 bytes or more are chunked by flax; "
+                             "not supported")
+        payload = packb([list(a.shape), a.dtype.name, np.ascontiguousarray(a).tobytes()])
+        return _ext(EXT_NDARRAY if isinstance(obj, np.ndarray) else EXT_NPSCALAR, payload)
+    if obj is None or isinstance(obj, bool):
+        return bytes([{None: 0xC0, False: 0xC2, True: 0xC3}[obj]])
+    if isinstance(obj, int):
+        return _int(obj)
+    if isinstance(obj, float):
+        return b"\xcb" + struct.pack(">d", obj)
+    if isinstance(obj, str):
+        raw = obj.encode()
+        return _head(len(raw), 0xA0, 31, (0xD9, 0xDA, 0xDB)) + raw
+    if isinstance(obj, bytes):
+        return _head(len(obj), None, -1, (0xC4, 0xC5, 0xC6)) + obj
+    raise TypeError(f"msgpack: cannot pack {type(obj).__name__}")
+
+
+def save_train_state(path: str, tree: dict) -> None:
+    """Write a training state's flax-layout tree (``SpadeTrainer.state_to_numpy``)
+    as the JAX package's ``latest.msgpack``; the file is replaced whole."""
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(packb(tree))
+    os.replace(tmp, path)
+
+
+def load_train_state(path: str) -> dict:
+    """The whole training state's tree from a checkpoint of either package."""
+    with open(path, "rb") as f:
+        return unpackb(f.read())

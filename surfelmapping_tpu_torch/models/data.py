@@ -1,6 +1,14 @@
-"""SPADE inference data on the host (counterpart of the inference half of
-surfelmapping_tpu/models/data.py), numpy and PIL as there.
+"""SPADE data on the host (counterpart of surfelmapping_tpu/models/data.py),
+numpy and PIL as there, with the same draws in the same order, so that a
+seed gives the same batches bit for bit.
 
+  * PairedRenderDataset = KittiDataset semantics (SPADE/data/kitti_dataset.py):
+    label = rendered surfel image, image = real photo, paired by filename;
+    train transform: resize shorter side to load_size, random crop
+    crop_size x crop_size, horizontal flip, RandomErasing applied to the
+    label ONLY (kitti_dataset.py:84-101) to simulate render holes;
+  * RandomErasing (SPADE/util/random_erasing.py): p=0.8, area 2-30%, aspect
+    0.3-1/0.3, erase value 0;
   * bad-frame skip list: the reference drops hardcoded KITTI frame-id ranges
     at load time (kitti_dataset.py:126-139);
   * SingleDataset semantics for inference (label only, 1248-wide crops at
@@ -36,6 +44,91 @@ def in_skip_ranges(name: str, ranges) -> bool:
     if fid is None:
         return False
     return any(lo <= fid <= hi for lo, hi in ranges)
+
+
+ERASE_AREA = (0.02, 0.3)  # share of the image erased, drawn uniformly
+ERASE_ASPECT = 0.2        # aspect ratio drawn from [0.2, 1 / 0.2]
+
+
+def random_erasing(img: np.ndarray, rng: np.random.Generator, p: float = 0.8) -> np.ndarray:
+    """Cutout augmentation with probability ``p`` (SPADE/util/random_erasing.py:27:
+    p=0.8, sl=0.02, sh=0.3, r1=0.2; erase value 0 per base_dataset.py:83-84)."""
+    if rng.random() > p:
+        return img
+    H, W = img.shape[:2]
+    area = H * W
+    for _ in range(100):
+        target = rng.uniform(*ERASE_AREA) * area
+        ratio = rng.uniform(ERASE_ASPECT, 1.0 / ERASE_ASPECT)
+        h = int(round(np.sqrt(target * ratio)))
+        w = int(round(np.sqrt(target / ratio)))
+        if h < H and w < W:
+            y = rng.integers(0, H - h)
+            x = rng.integers(0, W - w)
+            img = img.copy()
+            img[y : y + h, x : x + w] = 0
+            return img
+    return img
+
+
+@dataclass
+class PairedRenderDataset:
+    """Yields (label, image) float32 NHWC batches in [-1, 1]."""
+
+    label_dir: str
+    image_dir: str
+    crop_size: int = 256
+    load_size: int = 286
+    seed: int = 0
+    # inclusive [lo, hi] frame-id ranges to drop; pass
+    # KITTI_BAD_FRAME_RANGES for the reference's hardcoded skip list
+    skip_ranges: tuple[tuple[int, int], ...] = ()
+
+    def __post_init__(self):
+        labels = sorted(os.listdir(self.label_dir))
+        images = set(os.listdir(self.image_dir))
+        self.names = [
+            n for n in labels
+            if n in images and not in_skip_ranges(n, self.skip_ranges)
+        ]
+        if not self.names:
+            raise ValueError("no paired files between label and image dirs")
+        self.rng = np.random.default_rng(self.seed)
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def _load_pair(self, name: str) -> tuple[np.ndarray, np.ndarray]:
+        lab = Image.open(os.path.join(self.label_dir, name)).convert("RGB")
+        img = Image.open(os.path.join(self.image_dir, name)).convert("RGB")
+        # resize shorter side to load_size keeping aspect
+        w, h = lab.size
+        scale = self.load_size / min(w, h)
+        nw, nh = int(round(w * scale)), int(round(h * scale))
+        lab = lab.resize((nw, nh), Image.NEAREST)
+        img = img.resize((nw, nh), Image.BICUBIC)
+        return np.asarray(lab), np.asarray(img)
+
+    def sample(self) -> tuple[np.ndarray, np.ndarray]:
+        name = self.names[self.rng.integers(0, len(self.names))]
+        lab, img = self._load_pair(name)
+        H, W = lab.shape[:2]
+        cs = self.crop_size
+        y = self.rng.integers(0, max(H - cs, 0) + 1)
+        x = self.rng.integers(0, max(W - cs, 0) + 1)
+        lab = lab[y : y + cs, x : x + cs]
+        img = img[y : y + cs, x : x + cs]
+        if self.rng.random() < 0.5:
+            lab = lab[:, ::-1]
+            img = img[:, ::-1]
+        lab = random_erasing(lab, self.rng)
+        to_f = lambda a: a.astype(np.float32) / 127.5 - 1.0  # noqa: E731
+        return to_f(lab), to_f(img)
+
+    def batches(self, batch_size: int, steps: int):
+        for _ in range(steps):
+            labs, imgs = zip(*(self.sample() for _ in range(batch_size)))
+            yield np.stack(labs), np.stack(imgs)
 
 
 @dataclass

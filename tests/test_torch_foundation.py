@@ -181,7 +181,8 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("entry", ["SurfelMapper", "render_view", "load_map", "ICPRefiner",
-                                   "WindowedBA", "build_map", "SpadeTrainer", "spade_test"])
+                                   "WindowedBA", "build_map", "SpadeTrainer", "spade_test",
+                                   "spade_train"])
 @pytest.mark.parametrize("device", [None, "cuda"])
 def test_entry_point_defaults_to_the_card(device, entry, tmp_path):
     """The mapper, the renderer, the trackers, the SPADE model and the CLIs
@@ -189,7 +190,7 @@ def test_entry_point_defaults_to_the_card(device, entry, tmp_path):
     than fall back."""
     from PIL import Image
 
-    from surfelmapping_tpu_torch import build_map, load_map, spade_test
+    from surfelmapping_tpu_torch import build_map, load_map, spade_test, spade_train
     from surfelmapping_tpu_torch.ba import WindowedBA
     from surfelmapping_tpu_torch.config import PipelineParams
     from surfelmapping_tpu_torch.icp import ICPRefiner
@@ -202,13 +203,17 @@ def test_entry_point_defaults_to_the_card(device, entry, tmp_path):
     surfels.save_map(surfels.empty_map(8, "cpu"), path, 0, 1)
     spade = SpadeConfig(ngf=8, crop_size=32)
     if entry == "spade_test":  # a checkpoint holding the generator, one label
-        from test_torch_gpu import _msgpack  # flax's msgpack subset, without flax
+        from surfelmapping_tpu_torch.models.checkpoint import packb
 
         v = init_variables(spade)
-        (tmp_path / "g.msgpack").write_bytes(_msgpack(
+        (tmp_path / "g.msgpack").write_bytes(packb(
             {"g_params": v["params"], "g_batch_stats": v["batch_stats"]}))
         (tmp_path / "labels").mkdir()
         Image.fromarray(np.zeros((32, 32, 3), np.uint8)).save(tmp_path / "labels" / "0.png")
+    if entry == "spade_train":  # one label/image pair
+        for d in ("labels", "images"):
+            (tmp_path / d).mkdir()
+            Image.fromarray(np.zeros((32, 32, 3), np.uint8)).save(tmp_path / d / "0.png")
     calls = {
         "SurfelMapper": lambda: SurfelMapper(tiny_cam(), device=device).device,
         "render_view": lambda: render_view(surfels.empty_map(8, "cpu"), np.eye(4), tiny_cam(),
@@ -227,10 +232,18 @@ def test_entry_point_defaults_to_the_card(device, entry, tmp_path):
             ["--ckpt", str(tmp_path / "g.msgpack"), "--label-dir", str(tmp_path / "labels"),
              "--crop", "32", "--ngf", "8", "--out", str(tmp_path / "enhanced")]
             + ([] if device is None else ["--device", device])),
+        "spade_train": lambda: spade_train.main(
+            ["--label-dir", str(tmp_path / "labels"), "--image-dir", str(tmp_path / "images"),
+             "--niter", "1", "--niter-decay", "0", "--steps-per-epoch", "1", "--crop", "32",
+             "--ngf", "8", "--ndf", "8", "--num-d", "1", "--n-layers-d", "2", "--no-vgg",
+             "--ckpt-dir", str(tmp_path / "ckpt")]
+            + ([] if device is None else ["--device", device])),
     }
     if torch.cuda.is_available():
         got = calls[entry]()
-        assert got == 0 if entry in ("load_map", "build_map", "spade_test") else got.type == "cuda"
+        assert got == 0 if entry in ("load_map", "build_map", "spade_test", "spade_train") \
+            else got.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             calls[entry]()
+        assert not (tmp_path / "ckpt").exists()  # spade_train raises before it writes

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels on the card, against their plain
 PyTorch versions, and the main path, the renderer, tracking and the SPADE
-enhancer on the card against the CPU.
+enhancer and trainer on the card against the CPU.
 
 Every test here needs a CUDA card: it carries the ``gpu`` marker and skips
 without one.  The file imports neither JAX nor the JAX package, so it also
@@ -10,7 +10,6 @@ runs on a machine that has only PyTorch, without the suite's conftest:
 """
 
 import os
-import struct
 
 import numpy as np
 import pytest
@@ -29,9 +28,13 @@ from surfelmapping_tpu_torch.ops.colors import unit_rgb
 from surfelmapping_tpu_torch.ops.preprocess import (metricize_depth, remove_movings,
                                                     stencil_chain_plain)
 from surfelmapping_tpu_torch.ops.splat import render_view
-from surfelmapping_tpu_torch import ba, convert, icp, spade_test
-from surfelmapping_tpu_torch.models.pix2pix import SpadeConfig, SpadeTrainer, init_variables
+from surfelmapping_tpu_torch import ba, convert, icp, spade_test, spade_train
+from surfelmapping_tpu_torch.models import checkpoint
+from surfelmapping_tpu_torch.models.pix2pix import (SpadeConfig, SpadeTrainer, init_state_numpy,
+                                                    init_variables)
 from surfelmapping_tpu_torch.ops import transforms
+from surfelmapping_tpu_torch.tools.compare import (flat, float32_gradients_held, gap_summary,
+                                                   grad_gaps)
 from surfelmapping_tpu_torch.ops.active import table_from_map
 from surfelmapping_tpu_torch.ops.transforms import compose, invert_se3
 from surfelmapping_tpu_torch.pipeline import SurfelMapper
@@ -455,34 +458,6 @@ def test_spade_generator_on_the_card_matches_the_cpu(case, cuda):
     assert float((torch.tanh(want).abs() < 0.99).float().mean()) > 0.5
 
 
-def _msgpack(obj) -> bytes:
-    """The msgpack subset of a flax checkpoint: maps, lists, str, bytes,
-    non-negative ints, numpy arrays as ext type 1 of (shape, dtype, bytes)."""
-    def head(n, fix, fixmax, b16, b32):
-        if n <= fixmax:
-            return bytes([fix | n])
-        if n < 1 << 16:
-            return bytes([b16]) + struct.pack(">H", n)
-        return bytes([b32]) + struct.pack(">I", n)
-
-    if isinstance(obj, dict):
-        return head(len(obj), 0x80, 15, 0xDE, 0xDF) + b"".join(
-            _msgpack(k) + _msgpack(v) for k, v in obj.items())
-    if isinstance(obj, list):
-        return head(len(obj), 0x90, 15, 0xDC, 0xDD) + b"".join(map(_msgpack, obj))
-    if isinstance(obj, str):
-        raw = obj.encode()
-        return head(len(raw), 0xA0, 31, 0xDA, 0xDB) + raw
-    if isinstance(obj, bytes):
-        return b"\xc6" + struct.pack(">I", len(obj)) + obj
-    if isinstance(obj, int) and 0 <= obj < 1 << 32:
-        return b"\xce" + struct.pack(">I", obj)
-    if isinstance(obj, np.ndarray):
-        payload = _msgpack([list(obj.shape), obj.dtype.name, np.ascontiguousarray(obj).tobytes()])
-        return b"\xc9" + struct.pack(">Ib", len(payload), 1) + payload
-    raise TypeError(type(obj))
-
-
 def test_spade_test_cli_on_the_card(tmp_path, cuda):
     """spade_test on the card (its default device) and on the CPU over the
     same PNGs, from a checkpoint of the port's seeded weights written in
@@ -491,7 +466,7 @@ def test_spade_test_cli_on_the_card(tmp_path, cuda):
     v = init_variables(SpadeConfig(ngf=8, crop_size=64), seed=1)
     v["batch_stats"] = _random_bn_stats(v["batch_stats"], np.random.default_rng(1))
     ckpt = tmp_path / "spade.msgpack"
-    ckpt.write_bytes(_msgpack({"g_params": v["params"], "g_batch_stats": v["batch_stats"],
+    ckpt.write_bytes(checkpoint.packb({"g_params": v["params"], "g_batch_stats": v["batch_stats"],
                                "step": np.zeros((), np.int32)}))
     labels, sems = tmp_path / "image", tmp_path / "semantic"
     labels.mkdir()
@@ -514,3 +489,88 @@ def test_spade_test_cli_on_the_card(tmp_path, cuda):
         assert np.abs(got - want).max() <= 1, n
         keep = np.asarray(Image.open(sems / n)) != 0
         np.testing.assert_array_equal(got[keep], np.asarray(Image.open(labels / n))[keep])
+
+
+@pytest.mark.parametrize("use_vae", [False, True], ids=["plain", "vae"])
+def test_spade_train_steps_on_the_card_match_the_cpu(use_vae, cuda):
+    """One D step and one G step (ngf 8, crop 64, batch 2, two scales of 4
+    layers, VGG on), each from the same variables and batch, on the card and
+    on the CPU: the losses within 1e-4 relative in float32 and float64; in
+    float32 the stored SN u/sigma and BN statistics within 1e-5 of their
+    largest magnitude, and the gradients (Adam's mu, b1 = 0) as
+    ``compare.float32_gradients_held`` holds them (the VAE's G step looser:
+    a rounding can flip a choice ahead of its losses); in float64, where no
+    rounding flips a choice, the gradients within 1e-6 of each leaf's
+    scale."""
+    cfg = SpadeConfig(ngf=8, ndf=8, crop_size=64, num_d=2, n_layers_d=4, use_vae=use_vae,
+                      z_dim=16)
+    rng = np.random.default_rng(3)
+    tree = init_state_numpy(cfg)
+    _random_bn_stats(tree["g_batch_stats"], rng)
+    label, real = (torch.from_numpy(rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32))
+                   for _ in range(2))
+    noise = torch.from_numpy(rng.normal(0, 1, (2, 16))) if use_vae else None
+
+    def run(device, dtype, step):
+        tr = SpadeTrainer(cfg, device=device)
+        st, logs = getattr(tr, step)(tr.state_from_numpy(tree).to(dtype), label.to(dtype),
+                                     real.to(dtype), noise=noise)
+        return tr.state_to_numpy(st), {k: float(v) for k, v in logs.items()}
+
+    for dtype in (torch.float32, torch.float64):
+        for step, net in (("d_step", "d"), ("g_step", "g")):
+            (card, card_logs), (cpu, cpu_logs) = (run(d, dtype, step) for d in (cuda, "cpu"))
+            assert card_logs.keys() == cpu_logs.keys()
+            for k in cpu_logs:
+                assert np.isfinite(card_logs[k]) and abs(card_logs[k] - cpu_logs[k]) <= \
+                    1e-4 * abs(cpu_logs[k]), (dtype, step, k)
+            gaps = gap_summary(grad_gaps(*(t[f"{net}_opt"]["inner_state"]["0"]["mu"]
+                                           for t in (card, cpu))))
+            if dtype == torch.float32:
+                a, b = flat(card[f"{net}_batch_stats"]), flat(cpu[f"{net}_batch_stats"])
+                for k in b:
+                    assert np.abs(a[k] - b[k]).max() <= 1e-5 * np.abs(b[k]).max(), (step, k)
+                assert float32_gradients_held(gaps, use_vae and net == "g"), (step, gaps)
+            else:
+                assert gaps["max"] <= 1e-6, (step, gaps)
+            assert int(card["step"]) == (1 if step == "g_step" else 0)
+
+
+def test_spade_train_then_spade_test_on_the_card(tmp_path, cuda):
+    """spade_train on the card (its default device) from label/image PNGs
+    the test writes, 2 epochs of 2 steps at ngf 8, crop 64, then spade_test
+    from its checkpoint: finite logged losses, a checkpoint the port reads
+    back bit for bit, enhanced frames that keep the rendered pixels where
+    the semantic is not 0."""
+    rng = np.random.default_rng(4)
+    dirs = {k: tmp_path / k for k in ("label", "image", "semantic")}
+    for d in dirs.values():
+        d.mkdir()
+    for fid in range(3):
+        name = f"{fid:06d}.png"
+        Image.fromarray(rng.integers(0, 256, (72, 96, 3), dtype=np.uint8)).save(dirs["label"] / name)
+        Image.fromarray(rng.integers(0, 256, (72, 96, 3), dtype=np.uint8)).save(dirs["image"] / name)
+        Image.fromarray((rng.uniform(size=(72, 96)) < 0.6).astype(np.uint8) * 4).save(
+            dirs["semantic"] / name)
+    ckpt = tmp_path / "ckpt"
+    small = ["--crop", "64", "--ngf", "8", "--num-d", "2", "--n-layers-d", "2"]
+    assert spade_train.main(["--label-dir", str(dirs["label"]), "--image-dir", str(dirs["image"]),
+                             "--niter", "1", "--niter-decay", "1", "--steps-per-epoch", "2",
+                             "--ndf", "8", "--log-every", "1", "--ckpt-dir", str(ckpt)]
+                            + small) == 0
+    logged = [float(w) for ln in (ckpt / "loss_log.txt").read_text().splitlines()
+              if ln.startswith("(epoch") for w in ln.split(")")[1].split()[1::2]]
+    assert logged and all(np.isfinite(logged))
+    raw = (ckpt / "latest.msgpack").read_bytes()
+    cfg = SpadeConfig(ngf=8, ndf=8, crop_size=64, num_d=2, n_layers_d=2)
+    tr = SpadeTrainer(cfg)
+    assert checkpoint.packb(tr.state_to_numpy(tr.state_from_numpy(checkpoint.unpackb(raw)))) == raw
+    out = tmp_path / "enhanced"
+    assert spade_test.main(["--ckpt", str(ckpt / "latest.msgpack"), "--label-dir",
+                            str(dirs["label"]), "--semantic-dir", str(dirs["semantic"]),
+                            "--out", str(out), "--crop", "64", "--ngf", "8"]) == 0
+    for name in sorted(os.listdir(dirs["label"])):
+        got = np.asarray(Image.open(out / name))
+        keep = np.asarray(Image.open(dirs["semantic"] / name)) != 0
+        assert got.shape == (72, 96, 3)
+        np.testing.assert_array_equal(got[keep], np.asarray(Image.open(dirs["label"] / name))[keep])
