@@ -80,7 +80,15 @@ Phases, each printed as one JSON line:
            spade_test from the checkpoint; wall ms per iteration, each
            step's card ms and launches vs its float32 bound, idle share,
            memory, first and last losses
-Each path (main, render, probes, icp_ba, spade, spade_train) is driven with every launch
+  kitti_dir  the dataset path at KITTI resolution: the main phase's 100 frames
+           written as a KITTI-layout directory (PNGs, calibration, poses),
+           decoded bit-equal (PIL, or the native libpng library where it
+           builds), build_map DIR's map equal record for record to a
+           mapper's at the reader's poses, --frames and --sub-level, the
+           map IO, load_map --calib paired renders, tools/run_e2e, the
+           viewer's card work; frames/s beside the main phase's windows,
+           decode and upload ms per frame, the card's idle share
+Each path (main, render, probes, icp_ba, spade, spade_train, kitti_dir) is driven with every launch
 count set to 0 just before it and read just after.  Kernel times are by CUDA events
 (tools/timing.py), warm in L2: ``ms`` and ``library_ms`` over calls issued
 back to back (the larger of the host's and the card's time per call);
@@ -496,8 +504,39 @@ def read_counts(counters) -> dict:
     return {c.name: c.launches for c in counters}
 
 
+def window_fps(mapper, next_frame, n: int = 100) -> tuple[list, dict]:
+    """Feed ``n`` frames (``next_frame(i)`` -> process_frame's arguments) to
+    ``mapper``, as phase_main does: frames/s by the host clock over frames
+    10-30, 40-60 and 80-100 (a sync at each edge); over frames 60-80 the
+    profiler's card busy time against that window's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    windows, idle, t_start, prof = [], {}, None, None
+    for i in range(n):
+        if i in (10, 40, 60, 80):
+            _ = mapper.count  # sync
+            t_start = time.perf_counter()
+            if i == 60:
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                prof.__enter__()
+        mapper.process_frame(*next_frame(i))
+        if i + 1 in (30, 60, 80, 100):
+            surfels = mapper.count  # sync: the window's work is done
+            dt = time.perf_counter() - t_start
+            if i + 1 == 80:
+                torch.cuda.synchronize()
+                prof.__exit__(None, None, None)
+                busy = sum(e.self_device_time_total for e in device_events(prof)) / 1e3
+                idle = dict(frames="60-80", wall_ms=dt * 1e3, busy_ms=busy,
+                            idle_share=max(0.0, 1.0 - busy / (dt * 1e3)))
+            else:
+                windows.append(dict(frames=f"{i - 19}-{i + 1}", fps=20 / dt, surfels=surfels))
+    return windows, idle
+
+
 def phase_main(dev, cam, params, kernels, smi: str) -> tuple:
-    """bench.py's operating point on the port's entry points."""
+    """bench.py's operating point on the port's entry points: 100 frames
+    staged on the card first, then fused (window_fps)."""
     from surfelmapping_tpu_torch.config import MapConfig
     from surfelmapping_tpu_torch.io.synthetic import SyntheticScene
     from surfelmapping_tpu_torch.pipeline import SurfelMapper
@@ -509,35 +548,25 @@ def phase_main(dev, cam, params, kernels, smi: str) -> tuple:
     )
     scene = SyntheticScene(cam, step=0.8)
     t0 = time.perf_counter()
-    frames = [mapper.stage_frame(*scene.frame(i)) for i in range(100)]
+    host = [scene.frame(i) for i in range(100)]  # kept for the kitti_dir phase
+    frames = [mapper.stage_frame(*f) for f in host]
     torch.cuda.synchronize()
     stage_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts(kernels)
-    windows, t_start = [], None
     t_run = time.perf_counter()
-    for i, frame in enumerate(frames):
-        if i in (10, 40, 80):
-            _ = mapper.count  # sync
-            t_start = time.perf_counter()
-        mapper.process_frame(*frame)
-        if i + 1 in (30, 60, 100):
-            surfels = mapper.count  # sync: the window's work is done
-            dt = time.perf_counter() - t_start
-            lo = i + 1 - 20
-            windows.append(dict(frames=f"{lo}-{i + 1}", fps=20 / dt, surfels=surfels,
-                                card=smi))
+    windows, idle = window_fps(mapper, lambda i: frames[i], len(frames))
     run_s = time.perf_counter() - t_run
     launches = read_counts(kernels)
     emit("main", resolution=f"{cam.width}x{cam.height}", frames=100,
-         staging_s=stage_s, run_s=run_s, windows=windows, live_count=mapper.count,
+         staging_s=stage_s, run_s=run_s, windows=windows, idle=idle, live_count=mapper.count,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          events=mapper.events, launches=launches, card=smi)
     if launches["preprocess_stencil"] < 100 or launches["zbuffer_argmin"] < 99:
         raise AssertionError(f"main: kernels not on the path: {launches}")
     emit("main_map", **map_checks(mapper.smap, scene))
-    return mapper, scene, frames, launches
+    return mapper, scene, host, frames, launches, dict(windows=windows, idle=idle)
 
 
 def phase_holds(dev, mapper, frames, zbuf_mod) -> None:
@@ -1432,6 +1461,234 @@ def phase_spade_train(dev, mapper, scene, counters, smi: str) -> dict:
     return {"zbuffer_argmin": launches["zbuffer_argmin"]}
 
 
+def map_file(path: str) -> tuple[list, np.ndarray]:
+    """A reference-format map file's (count, start_id, end_id) and its
+    records as int32 words."""
+    raw = Path(path).read_bytes()
+    head = np.frombuffer(raw[:12], "<i4").tolist()
+    return head, np.frombuffer(raw[12:], "<i4").reshape(head[0], 12)
+
+
+def phase_kitti_dir(dev, cam, params, scene, host: list, main_rate: dict, counters,
+                    smi: str) -> dict:
+    """The dataset path at KITTI resolution: the main phase's 100 frames
+    (SyntheticScene(kitti_cam(), step=0.8)) written as a KITTI-layout
+    directory (io/kitti.write_kitti_dir: RGB, u16 mm depth and semantic
+    PNGs, times, calibration, pose @ inv(T20)), then on the card:
+      1. the reader decodes every frame bit-equal to the scene's arrays, with
+         the native decoder where its library builds on this machine (g++
+         and libpng's header), else PIL — the decoder is named;
+      2. ``build_map DIR`` (its main(argv), the CLI's defaults) writes the map
+         of a SurfelMapper with the same settings fed the scene's arrays at
+         the reader's poses, record for record; K2 >= 100 and K1 >= 99
+         launches; the main phase's map checks;
+      3. ``--frames 50`` ends at id 49; ``--sub-level 1`` fuses 613x185
+         frames (padded to 614x186) with the intrinsics halved into a
+         non-empty map;
+      4. the Python map IO (and the native one where it builds) save and
+         load the ~4.4 M-surfel map to the same records and bytes, timed;
+      5. ``load_map MAP --calib DIR --mode paired`` writes a PNG pair per
+         frame, each covering more than half of the pixels its frame saw
+         (depth in [near, far) outside the stereo border); paired views/s;
+      6. tools/run_e2e passes (build_map -> load_map x4 -> spade_train ->
+         spade_test -> move_data at KITTI resolution);
+      7. the viewer: with matplotlib, ``build_map DIR --frames 20
+         --gui-snapshots D --gui-render-every 5``; without it, the loop's
+         card work directly (gui.panel_renders: the local model and the
+         map at the frame's pose, the map at the map-view pose);
+    and the dataset path's frames/s (reader -> SurfelMapper at the main
+    phase's settings, so what differs is the decode and the upload) over
+    the main phase's windows (printed beside them), with the card's idle
+    share over frames 60-80, the decoder's host ms per frame and the
+    upload's (stage_frame of a frame's host arrays, to a synchronize)."""
+    import importlib.util
+    import tempfile
+
+    from PIL import Image
+
+    from surfelmapping_tpu_torch import build_map, load_map, surfels
+    from surfelmapping_tpu_torch.config import MapConfig
+    from surfelmapping_tpu_torch.gui import map_view_pose, panel_renders
+    from surfelmapping_tpu_torch.io import kitti, native
+    from surfelmapping_tpu_torch.pipeline import SurfelMapper
+    from surfelmapping_tpu_torch.tools import run_e2e
+
+    why = native.missing_toolchain()
+    decoder = "native" if why is None else "pil"
+    res = {"card": smi, "decoder": decoder,
+           "native_library": "builds here" if why is None else f"not built: {why.splitlines()[0]}"}
+    n = len(host)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        seq = str(root / "seq")
+        t0 = time.perf_counter()
+        kitti.write_kitti_dir(seq, cam, host)
+        res["write_s"] = time.perf_counter() - t0
+
+        reader = kitti.KittiReader(seq, decoder=decoder)
+        decode_ms, equal = [], 0
+        for want in host:
+            t0 = time.perf_counter()
+            f = reader.get_next()
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            equal += all(np.array_equal(a, b) and a.dtype == b.dtype
+                         for a, b in zip((f.rgb, f.depth, f.semantic), want[:3]))
+        reader.close()
+        poses = reader.poses
+        res.update(frames=n, resolution=f"{cam.width}x{cam.height}", decoded_bit_equal=equal,
+                   decode_ms_per_frame=spread(decode_ms))
+        if equal != n or reader.cam != cam:
+            raise AssertionError(f"kitti_dir: {equal} of {n} frames decoded bit-equal, "
+                                 f"camera {reader.cam}")
+
+        reset_counts(counters)
+        map_path = str(root / "map.bin")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            rc = build_map.main([seq, "--out", map_path, "--decoder", decoder])
+        cli_s = time.perf_counter() - t0
+        cli = read_counts(counters)
+        ref = SurfelMapper(cam, params, MapConfig(capacity=1 << 22), sync_every=8)
+        for (rgb, depth, sem, _), pose in zip(host, poses):
+            ref.process_frame(rgb, depth, sem, pose)
+        ref_path = str(root / "ref.bin")
+        ref.save_map(ref_path, 0, n - 1)
+        (head, rec), (ref_head, ref_rec) = map_file(map_path), map_file(ref_path)
+        same = head == ref_head == [ref.count, 0, n - 1] and np.array_equal(rec, ref_rec)
+        res.update(cli_s=cli_s, cli_fps=n / cli_s, cli_launches=cli, map_header=head,
+                   cli_map_equals_mapper_at_reader_poses=same,
+                   cli_names_decoder=f"decoder {decoder}" in log.getvalue())
+        if rc != 0 or not same or not res["cli_names_decoder"]:
+            raise AssertionError(f"kitti_dir: build_map rc {rc}, map header {head} vs "
+                                 f"{ref_head}, records equal {same}")
+        if cli["preprocess_stencil"] < n or cli["zbuffer_argmin"] < n - 1:
+            raise AssertionError(f"kitti_dir: kernels not on the dataset path: {cli}")
+        res["map"] = map_checks(ref.smap, scene)
+        del ref
+
+        f50, fsub = str(root / "f50.bin"), str(root / "sub.bin")
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            rc50 = build_map.main([seq, "--frames", "50", "--out", f50, "--decoder", decoder])
+            rcsub = build_map.main([seq, "--sub-level", "1", "--out", fsub,
+                                    "--decoder", decoder])
+        half = kitti.KittiReader(seq, sub_level=1).cam
+        res.update(frames_50_header=map_file(f50)[0], sub_level_1_header=map_file(fsub)[0],
+                   sub_level_1_camera=[half.width, half.height, half.fx, half.cx])
+        size = (cam.width >> 1, cam.height >> 1)  # 613x185 at KITTI's 1226x370
+        if (rc50 != 0 or res["frames_50_header"][1:] != [0, 49] or rcsub != 0
+                or res["sub_level_1_header"][0] == 0 or (half.width, half.height) != size
+                or half.fx != cam.fx / 2 or half.cy != cam.cy / 2
+                or "%dx%d" % size not in log.getvalue()):
+            raise AssertionError(f"kitti_dir: --frames/--sub-level: {res}")
+
+        io_s = {}
+        t0 = time.perf_counter()
+        smap, s0, s1 = surfels.load_map(map_path, dev)
+        torch.cuda.synchronize()
+        io_s["python_load"] = time.perf_counter() - t0
+        py_path = str(root / "py.bin")
+        t0 = time.perf_counter()
+        surfels.save_map(smap, py_path, s0, s1)
+        io_s["python_save"] = time.perf_counter() - t0
+        io_equal = Path(py_path).read_bytes() == Path(map_path).read_bytes()
+        if why is None:
+            nat_path = str(root / "native.bin")
+            t0 = time.perf_counter()
+            nat_rec, a, b = native.load_map_native(map_path)
+            io_s["native_load"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            native.save_map_native(nat_path, nat_rec, a, b)
+            io_s["native_save"] = time.perf_counter() - t0
+            io_equal = (io_equal and (a, b) == (s0, s1)
+                        and np.array_equal(nat_rec.view(np.int32), rec)
+                        and Path(nat_path).read_bytes() == Path(map_path).read_bytes())
+        res.update(map_io_s=io_s, map_io_surfels=int(smap.count), map_io_equal=io_equal)
+        del smap
+        if not io_equal:
+            raise AssertionError(f"kitti_dir: map IO differs {io_s}")
+
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = load_map.main([map_path, "--calib", seq, "--mode", "paired",
+                                "--out", str(root / "novel")])
+        paired_s = time.perf_counter() - t0
+        names = sorted(os.listdir(root / "paired" / "image"))
+        seen_share, hit_share = [], []
+        for i, (_, depth, _, _) in enumerate(host):
+            sem = np.asarray(Image.open(root / "paired" / "semantic" / f"{i:06d}.png")) > 0
+            d = depth.astype(np.float32) / 1000.0
+            seen = (d >= params.near_clip) & (d < params.far_clip)
+            seen[:, :int(params.stereo_border)] = False
+            seen_share.append(float((sem & seen).sum() / seen.sum()))
+            hit_share.append(float(sem.mean()))
+        res.update(paired_views=len(names), paired_views_per_s=len(names) / paired_s,
+                   paired_covered_of_seen=spread(seen_share), paired_hit_share=spread(hit_share))
+        if rc != 0 or names != [f"{i:06d}.png" for i in range(n)] or min(seen_share) <= 0.5:
+            raise AssertionError(f"kitti_dir: paired renders {len(names)}, coverage of the "
+                                 f"seen pixels {min(seen_share)}")
+
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = run_e2e.main(["--workdir", str(root / "e2e")])
+        e2e = json.loads((root / "e2e" / "e2e.json").read_text())
+        res["run_e2e"] = dict(ok=rc == 0 and e2e["ok"], s=time.perf_counter() - t0,
+                              hops={k: {kk: vv for kk, vv in v.items() if kk != "dir"}
+                                    for k, v in e2e["hops"].items()})
+        if not res["run_e2e"]["ok"]:
+            raise AssertionError(f"kitti_dir: run_e2e {e2e}")
+
+        if importlib.util.find_spec("matplotlib") is not None:
+            snaps = root / "snaps"
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = build_map.main([seq, "--frames", "20", "--gui-snapshots", str(snaps),
+                                     "--gui-render-every", "5", "--out", str(root / "g.bin"),
+                                     "--decoder", decoder])
+            res["gui"] = dict(ran="build_map --gui-snapshots", snapshots=len(os.listdir(snaps)))
+            gui_ok = rc == 0 and res["gui"]["snapshots"] == 4
+        else:
+            mapper = SurfelMapper(cam, params, MapConfig(capacity=1 << 22), sync_every=8)
+            covered = []
+            for i in range(20):
+                rgb, depth, sem, _ = host[i]
+                mapper.process_frame(rgb, depth, sem, poses[i])
+                if (i + 1) % 5 == 0:
+                    for local in (False, True):
+                        out, map_out = panel_renders(mapper, mapper.smap, rgb, depth, sem,
+                                                     poses[i], map_view_pose(poses[i]), local)
+                        covered.append([float((o["id"] >= 0).float().mean())
+                                        for o in (out, map_out)])
+            res["gui"] = dict(ran="direct (no matplotlib): local_model + render_view at the "
+                                  "frame and map-view poses", renders=2 * len(covered),
+                              hit_shares=covered)
+            gui_ok = all(min(c) > 0.05 for c in covered)
+        if not gui_ok:
+            raise AssertionError(f"kitti_dir: viewer {res['gui']}")
+
+        mapper = SurfelMapper(cam, params, MapConfig(capacity=1 << 24, active_blocks=512,
+                                                     freeze_active_budget=True), sync_every=32)
+        reader = kitti.KittiReader(seq, decoder=decoder)
+
+        def next_frame(i):
+            f = reader.get_next()
+            return f.rgb, f.depth, f.semantic, f.pose
+
+        windows, idle = window_fps(mapper, next_frame, n)
+        reader.close()
+        stage_ms = []
+        for rgb, depth, sem, pose in host[:20]:
+            t0 = time.perf_counter()
+            mapper.stage_frame(rgb, depth, sem, pose)
+            torch.cuda.synchronize()
+            stage_ms.append((time.perf_counter() - t0) * 1e3)
+        res.update(windows=windows, idle=idle, main=main_rate,
+                   upload_ms_per_frame=spread(stage_ms))
+        del mapper
+    launches = read_counts(counters)
+    res["launches"] = launches
+    emit("kitti_dir", **res)
+    return {k: launches[k] for k in ("zbuffer_argmin", "preprocess_stencil")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1472,7 +1729,7 @@ def main() -> int:
     probe = phase_outres(dev, outres_mod)
     phase_small(dev)
     phase_small_icp(dev)
-    mapper, scene, frames, fusion = phase_main(dev, cam, params, counters, smi)
+    mapper, scene, host, frames, fusion, main_rate = phase_main(dev, cam, params, counters, smi)
     phase_holds(dev, mapper, frames, zbuf_mod)
     views, per_view, render = phase_render(dev, mapper, scene, counters, smi)
     phase_render_holds(dev, mapper, scene, views[0], per_view[0]["n_active_blocks"], zbuf_mod)
@@ -1483,8 +1740,9 @@ def main() -> int:
     probes = phase_probes(counters)
     tracking, (icp_mapper, icp_pose) = phase_icp_ba(dev, counters, smi)
     phase_icp_holds(dev, icp_mapper, icp_pose, zbuf_mod)
+    dataset = phase_kitti_dir(dev, cam, params, scene, host, main_rate, counters, smi)
     emit("paths", launches=dict(main=fusion, render=render, probes=probes, icp_ba=tracking,
-                                spade=enhance, spade_train=training))
+                                spade=enhance, spade_train=training, kitti_dir=dataset))
 
     k1i, k1r = k1["index"], k1["render"]
     table = [
@@ -1493,7 +1751,7 @@ def main() -> int:
              replaces="surfelmapping_tpu/ops/pallas_zbuf.py:188",
              launches=(fusion["zbuffer_argmin"] + render["zbuffer_argmin"]
                        + tracking["zbuffer_argmin"] + enhance["zbuffer_argmin"]
-                       + training["zbuffer_argmin"]),
+                       + training["zbuffer_argmin"] + dataset["zbuffer_argmin"]),
              max_abs_err=max(k1i["max_abs_err"], k1r["max_abs_err"]),
              ms=k1i["ms"], plain_ms=k1i["plain_ms"], bound_ms=k1i["bound_ms"],
              bound_by="bytes", library_ms=k1i["library_ms"], ms_device=k1i["ms_device"],
@@ -1507,7 +1765,8 @@ def main() -> int:
              library_ms_device_cold_render=k1r["library_ms_device_cold"]),
         dict(name="preprocess_stencil", route="cuda", source=k2_mod.KERNEL.repo_source,
              replaces="surfelmapping_tpu/ops/pallas_preprocess.py:188",
-             launches=fusion["preprocess_stencil"], max_abs_err=k2["max_abs_err"],
+             launches=fusion["preprocess_stencil"] + dataset["preprocess_stencil"],
+             max_abs_err=k2["max_abs_err"],
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None, ms_device=k2["ms_device"],
              ms_device_cold=k2["ms_device_cold"], ctas_per_sm=k2_build["ctas_per_sm"],

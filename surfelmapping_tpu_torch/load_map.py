@@ -4,7 +4,7 @@ counterpart, reference load_map.cpp, headless).
 Loads a saved surfel map and renders novel-view image/semantic PNG pairs for
 simulator data generation:
 
-    python -m surfelmapping_tpu_torch.load_map MAP.bin --synthetic
+    python -m surfelmapping_tpu_torch.load_map MAP.bin --calib DIR|--synthetic
         [--synthetic-cam kitti|small] [--mode random|s|paired|overview]
         [--num N] [--out DIR] [--seed S] [--footprint F] [--device cuda|cpu]
 
@@ -16,9 +16,11 @@ Modes (load_map.cpp:114-287):
   overview: lifted chase-camera fly-through of the whole trajectory
             (load_map.cpp:254-287).
 
-The poses and intrinsics come from the procedural scene (``--synthetic``).
-Dataset input (``--calib``) needs the KITTI reader, which is not ported yet,
-and is refused.  Renders on the CUDA card unless ``--device cpu`` is given.
+The intrinsics and the poses of the mapped id range come from a KITTI-layout
+dataset directory (``--calib DIR``: its calibration and ``pose.txt``, no
+image is read) or from the procedural scene (``--synthetic``, also the
+default without ``--calib``).  Renders on the CUDA card unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("map", help="binary surfel map (reference format)")
     ap.add_argument("--calib", default=None,
-                    help="dataset dir for intrinsics+poses (not ported yet)")
+                    help="dataset dir for intrinsics+poses")
     ap.add_argument("--synthetic", action="store_true",
                     help="poses and intrinsics of the procedural scene")
     ap.add_argument("--synthetic-cam", choices=["kitti", "small"], default="kitti",
@@ -48,12 +50,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.calib:
-        raise NotImplementedError(
-            "--calib needs the KITTI dataset reader (io/kitti), which the port "
-            "does not have yet; use --synthetic")
 
-    from .io.synthetic import SyntheticScene, kitti_cam, tiny_cam
     from .pipeline import resolve_device
     from .surfels import load_map as load_map_file
     from .views import acquire_images, overview_views, random_novel_views, s_shaped_views
@@ -63,9 +60,18 @@ def main(argv=None) -> int:
     smap, start_id, end_id = load_map_file(args.map, dev)
     print(f"loaded {int(smap.count)} surfels, frames [{start_id}, {end_id}]")
 
-    cam = tiny_cam(256, 128) if args.synthetic_cam == "small" else kitti_cam()
-    scene = SyntheticScene(cam)
-    base_views = [scene.pose(i) for i in range(start_id, max(end_id + 1, start_id + 2))]
+    if args.synthetic or not args.calib:
+        from .io.synthetic import SyntheticScene, kitti_cam, tiny_cam
+
+        cam = tiny_cam(256, 128) if args.synthetic_cam == "small" else kitti_cam()
+        scene = SyntheticScene(cam)
+        base_views = [scene.pose(i) for i in range(start_id, max(end_id + 1, start_id + 2))]
+    else:
+        from .io.kitti import KittiReader
+
+        reader = KittiReader(args.calib)
+        cam = reader.cam
+        base_views = [reader.poses[i] for i in range(start_id, end_id + 1)]
 
     if args.mode == "paired":
         views = [np.asarray(v, np.float32) for v in base_views]

@@ -398,6 +398,20 @@ class SurfelMapper:
             while self.active_blocks < n:
                 self.active_blocks *= 2
 
+    def local_model(self, rgb, depth, semantic, pose) -> SurfelMap:
+        """The frame's UNFUSED local surfel cloud in the world frame — the
+        reference's per-frame inspection surface (GlobalModel::
+        getLocalSurfelModel, src/GlobalModel.cpp:1077-1176): every valid
+        pixel of the metric depth becomes a surfel, in the reference's uv
+        column-major lattice order, stamped with the current tick; nothing
+        is associated or written to the map.  The GUI's local-model panel."""
+        from .ops.local_model import local_surfel_model
+
+        rgb, depth, semantic, pose = self._to_device(rgb, depth, semantic, pose)
+        depth_m = metricize_depth(depth, self.cam, self.params)
+        return local_surfel_model(depth_m, rgb, semantic, pose, float(self.tick),
+                                  self.cam, self.params)
+
     # -- frame ingestion ----------------------------------------------------
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:

@@ -27,8 +27,9 @@ from typing import BinaryIO
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from .ops.colors import decode_color
+from .ops.colors import decode_color, encode_color
 
 # map columns in record-independent order; colorsem is int32, the rest f32
 COLUMNS = ("px", "py", "pz", "conf", "colorsem", "init_t", "last_t",
@@ -104,6 +105,17 @@ class SurfelMap:
 
     def sem(self) -> torch.Tensor:
         return decode_color(self.column("colorsem"))[1]
+
+
+def map_from_stacked(pos, conf, rgb, sem, init_t, last_t, normal, radius,
+                     count) -> SurfelMap:
+    """A map from stacked (N,3) pos/rgb/normal and (N,) columns, with the
+    spare slot appended (surfelmapping_tpu/surfels.py:98-110)."""
+    cols = dict(px=pos[:, 0], py=pos[:, 1], pz=pos[:, 2], conf=conf,
+                colorsem=encode_color(rgb, sem), init_t=init_t, last_t=last_t,
+                nx=normal[:, 0], ny=normal[:, 1], nz=normal[:, 2], radius=radius)
+    return SurfelMap(**{k: F.pad(v, (0, 1)) for k, v in cols.items()},
+                     count=torch.as_tensor(count, dtype=torch.int32, device=pos.device))
 
 
 def empty_map(capacity: int, device: torch.device | str) -> SurfelMap:

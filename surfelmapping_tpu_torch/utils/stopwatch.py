@@ -32,10 +32,23 @@ class Stopwatch:
         finally:
             if sync is not None and torch.device(sync).type == "cuda":
                 torch.cuda.synchronize(sync)
-            ms = (_time.perf_counter() - t0) * 1000.0
-            self.timings[name] = ms
-            self.totals[name] += ms
-            self.counts[name] += 1
+            self._record(name, t0)
+
+    def tick(self, name: str) -> None:
+        """Start the named timer (the reference's TICK)."""
+        self.timings[f"__start_{name}"] = _time.perf_counter()
+
+    def tock(self, name: str) -> None:
+        """Stop the named timer and record it (TOCK); without a tick, nothing."""
+        start = self.timings.pop(f"__start_{name}", None)
+        if start is not None:
+            self._record(name, start)
+
+    def _record(self, name: str, start: float) -> None:
+        ms = (_time.perf_counter() - start) * 1000.0
+        self.timings[name] = ms
+        self.totals[name] += ms
+        self.counts[name] += 1
 
     def mean_ms(self, name: str) -> float:
         c = self.counts.get(name, 0)

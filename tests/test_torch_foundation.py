@@ -182,22 +182,25 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("entry", ["SurfelMapper", "render_view", "load_map", "ICPRefiner",
                                    "WindowedBA", "build_map", "SpadeTrainer", "spade_test",
-                                   "spade_train"])
+                                   "spade_train", "build_map_dataset", "load_map_calib",
+                                   "local_model", "run_e2e"])
 @pytest.mark.parametrize("device", [None, "cuda"])
 def test_entry_point_defaults_to_the_card(device, entry, tmp_path):
-    """The mapper, the renderer, the trackers, the SPADE model and the CLIs
-    run on the card unless asked for the CPU; without CUDA they raise rather
-    than fall back."""
+    """The mapper, the renderer, the trackers, the SPADE model, the CLIs
+    (with dataset input too) and tools/run_e2e run on the card unless
+    asked for the CPU; without CUDA they raise rather than fall back."""
     from PIL import Image
 
     from surfelmapping_tpu_torch import build_map, load_map, spade_test, spade_train
     from surfelmapping_tpu_torch.ba import WindowedBA
     from surfelmapping_tpu_torch.config import PipelineParams
     from surfelmapping_tpu_torch.icp import ICPRefiner
-    from surfelmapping_tpu_torch.io.synthetic import tiny_cam
+    from surfelmapping_tpu_torch.io.kitti import write_kitti_dir
+    from surfelmapping_tpu_torch.io.synthetic import SyntheticScene, tiny_cam
     from surfelmapping_tpu_torch.models.pix2pix import SpadeConfig, SpadeTrainer, init_variables
     from surfelmapping_tpu_torch.ops.splat import render_view
     from surfelmapping_tpu_torch.pipeline import SurfelMapper
+    from surfelmapping_tpu_torch.tools import run_e2e
 
     path = str(tmp_path / "empty.bin")
     surfels.save_map(surfels.empty_map(8, "cpu"), path, 0, 1)
@@ -214,6 +217,9 @@ def test_entry_point_defaults_to_the_card(device, entry, tmp_path):
         for d in ("labels", "images"):
             (tmp_path / d).mkdir()
             Image.fromarray(np.zeros((32, 32, 3), np.uint8)).save(tmp_path / d / "0.png")
+    seq = str(tmp_path / "seq")  # a two-frame KITTI-layout directory
+    write_kitti_dir(seq, tiny_cam(), (SyntheticScene(tiny_cam()).frame(i) for i in range(2)))
+    dev = [] if device is None else ["--device", device]
     calls = {
         "SurfelMapper": lambda: SurfelMapper(tiny_cam(), device=device).device,
         "render_view": lambda: render_view(surfels.empty_map(8, "cpu"), np.eye(4), tiny_cam(),
@@ -238,12 +244,24 @@ def test_entry_point_defaults_to_the_card(device, entry, tmp_path):
              "--ngf", "8", "--ndf", "8", "--num-d", "1", "--n-layers-d", "2", "--no-vgg",
              "--ckpt-dir", str(tmp_path / "ckpt")]
             + ([] if device is None else ["--device", device])),
+        "build_map_dataset": lambda: build_map.main(
+            [seq, "--decoder", "pil", "--capacity", str(1 << 16), "--out",
+             str(tmp_path / "m.bin")] + dev),
+        "load_map_calib": lambda: load_map.main(
+            [path, "--calib", seq, "--num", "1", "--out", str(tmp_path / "novel")] + dev),
+        "local_model": lambda: SurfelMapper(tiny_cam(), device=device).local_model(
+            *SyntheticScene(tiny_cam()).frame(0)).device,
+        "run_e2e": lambda: run_e2e.main(
+            ["--workdir", str(tmp_path / "e2e"), "--synthetic-cam", "small", "--frames", "2"]
+            + dev),
     }
     if torch.cuda.is_available():
         got = calls[entry]()
-        assert got == 0 if entry in ("load_map", "build_map", "spade_test", "spade_train") \
+        assert got == 0 if entry in ("load_map", "build_map", "spade_test", "spade_train",
+                                     "build_map_dataset", "load_map_calib", "run_e2e") \
             else got.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             calls[entry]()
         assert not (tmp_path / "ckpt").exists()  # spade_train raises before it writes
+        assert not (tmp_path / "e2e").exists()  # so does run_e2e

@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels on the card, against their plain
-PyTorch versions, and the main path, the renderer, tracking and the SPADE
-enhancer and trainer on the card against the CPU.
+PyTorch versions, and the main path, the renderer, tracking, the SPADE
+enhancer and trainer, the dataset CLI and the local model on the card
+against the CPU.
 
 Every test here needs a CUDA card: it carries the ``gpu`` marker and skips
 without one.  The file imports neither JAX nor the JAX package, so it also
@@ -28,7 +29,9 @@ from surfelmapping_tpu_torch.ops.colors import unit_rgb
 from surfelmapping_tpu_torch.ops.preprocess import (metricize_depth, remove_movings,
                                                     stencil_chain_plain)
 from surfelmapping_tpu_torch.ops.splat import render_view
-from surfelmapping_tpu_torch import ba, convert, icp, spade_test, spade_train
+from surfelmapping_tpu_torch import ba, build_map, convert, icp, spade_test, spade_train, surfels
+from surfelmapping_tpu_torch.io import native
+from surfelmapping_tpu_torch.io.kitti import KittiReader, write_kitti_dir
 from surfelmapping_tpu_torch.models import checkpoint
 from surfelmapping_tpu_torch.models.pix2pix import (SpadeConfig, SpadeTrainer, init_state_numpy,
                                                     init_variables)
@@ -574,3 +577,70 @@ def test_spade_train_then_spade_test_on_the_card(tmp_path, cuda):
         keep = np.asarray(Image.open(dirs["semantic"] / name)) != 0
         assert got.shape == (72, 96, 3)
         np.testing.assert_array_equal(got[keep], np.asarray(Image.open(dirs["label"] / name))[keep])
+
+
+def _machine_decoder() -> str:
+    """The native decoder where this machine can build it (g++ and libpng's
+    header), else PIL: the choice chip_smoke.py makes."""
+    return "pil" if native.missing_toolchain() else "native"
+
+
+@pytest.fixture
+def scene_dir(tmp_path):
+    """A 5-frame 128x96 KITTI-layout directory of the procedural scene."""
+    cam = tiny_cam(128, 96)
+    scene = SyntheticScene(cam)
+    write_kitti_dir(str(tmp_path / "seq"), cam, (scene.frame(i) for i in range(5)))
+    return str(tmp_path / "seq"), [scene.frame(i) for i in range(5)]
+
+
+def test_dataset_decoder_on_this_machine(scene_dir, tmp_path, cuda):
+    """The machine's decoder reads every frame back bit-equal; where the
+    native library builds here, its map IO equals the Python map IO."""
+    path, frames = scene_dir
+    r = KittiReader(path, decoder=_machine_decoder())
+    for want in frames:
+        f = r.get_next()
+        for got, w in zip((f.rgb, f.depth, f.semantic, f.pose), want):
+            np.testing.assert_array_equal(got, w)
+    r.close()
+    if r.decoder == "native":
+        m = SurfelMapper(tiny_cam(128, 96), device=cuda)
+        for fr in frames:
+            m.process_frame(*fr)
+        p_py, p_nat = str(tmp_path / "py.bin"), str(tmp_path / "nat.bin")
+        m.save_map(p_py, 0, 4)
+        rec, s0, s1 = native.load_map_native(p_py)
+        native.save_map_native(p_nat, rec, s0, s1)
+        assert open(p_py, "rb").read() == open(p_nat, "rb").read() and rec.shape[0] > 0
+        loaded, _, _ = surfels.load_map(p_nat, cuda)
+        np.testing.assert_array_equal(surfels.pack_records(loaded).cpu().numpy(), rec)
+
+
+def test_dataset_cli_on_the_card_matches_the_cpu(scene_dir, tmp_path, cuda):
+    """build_map DIR on the card writes the CPU's map bit for bit, also
+    with --frames and the backward clean."""
+    path, _ = scene_dir
+    for extra in ([], ["--frames", "3", "--clean"]):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            outs[dev] = str(tmp_path / f"{dev}.bin")
+            assert build_map.main([path, "--out", outs[dev], "--capacity", str(1 << 16),
+                                   "--decoder", _machine_decoder(), "--device", dev]
+                                  + extra) == 0
+        card, cpu = (open(outs[d], "rb").read() for d in ("cuda", "cpu"))
+        n = int(np.frombuffer(cpu[:4], "<u4")[0])
+        assert n > 100 and card == cpu
+
+
+def test_local_model_on_the_card_matches_the_cpu(cuda):
+    scene = SyntheticScene(tiny_cam())
+    models = {}
+    for dev in ("cuda", "cpu"):
+        m = SurfelMapper(tiny_cam(), PipelineParams(), MapConfig(capacity=1 << 16), device=dev)
+        m.process_frame(*scene.frame(0))
+        models[dev] = m.local_model(*scene.frame(1))
+    card, cpu = models["cuda"], models["cpu"]
+    assert card.device.type == "cuda" and int(card.count) == int(cpu.count) > 0
+    for k in surfels.COLUMNS:
+        assert torch.equal(card.column(k).cpu(), cpu.column(k)), k

@@ -131,7 +131,10 @@ def test_load_map_cli_modes(map_file, tmp_path, mode, folder, first, n):
         assert names == [f"{first + i:06d}.png" for i in range(n)]
 
 
-def test_load_map_cli_refuses_dataset_input(tmp_path):
-    """--calib needs the KITTI reader: a clear error, never the synthetic scene."""
-    with pytest.raises(NotImplementedError, match="KITTI"):
-        load_map.main([str(tmp_path / "m.bin"), "--calib", str(tmp_path), "--device", "cpu"])
+def test_load_map_cli_refuses_dataset_input(map_file, tmp_path):
+    """--calib of a directory that holds no KITTI-layout dataset: a clear
+    error, never the synthetic scene's poses."""
+    with pytest.raises(FileNotFoundError, match="times.txt"):
+        load_map.main([map_file, "--calib", str(tmp_path), "--device", "cpu",
+                       "--out", str(tmp_path / "novel")])
+    assert not (tmp_path / "novel").exists()
