@@ -25,6 +25,11 @@ Phases, each printed as one JSON line:
            (plain versions): identical per-frame stats, every map column
            bit for bit; the pose math (compose, invert_se3, transforms.acos)
            bit for bit on random inputs, beside the torch ops it replaced
+  small_reference  the reference-form fusion ops on a 128x96 camera, card
+           vs CPU from one map: build_index_map -> associate -> fuse_active
+           -> append_flat, record for record; index_resolve (the three-op
+           z-buffer) against K1 on the card at the index map's shape
+           (P = 453,620, A = 2^20, random keys and many ties), exact
   main     the main path at KITTI resolution (1226x370): 100 synthetic frames
            through SurfelMapper.process_frame at bench.py's operating point,
            frames/s per window, kernel launch counts, map checks
@@ -88,7 +93,14 @@ Phases, each printed as one JSON line:
            map IO, load_map --calib paired renders, tools/run_e2e, the
            viewer's card work; frames/s beside the main phase's windows,
            decode and upload ms per frame, the card's idle share
-Each path (main, render, probes, icp_ba, spade, spade_train, kitti_dir) is driven with every launch
+  sharded  the sharded engine (parallel/sharded.py) at KITTI resolution on
+           the main phase's first 36 frames: (a) one rank over NCCL, its map
+           equal to a single-card SurfelMapper's (count, sorted records bit
+           for bit); (b) two gloo ranks sharing the card (the port's
+           launcher), the same count and >= 99% of the records; frames/s per
+           window, the card's busy share, the collectives' bytes and ms per
+           frame, K1 and K2 launches per rank and frame
+Each path (main, render, probes, icp_ba, spade, spade_train, kitti_dir, sharded) is driven with every launch
 count set to 0 just before it and read just after.  Kernel times are by CUDA events
 (tools/timing.py), warm in L2: ``ms`` and ``library_ms`` over calls issued
 back to back (the larger of the host's and the card's time per call);
@@ -1461,6 +1473,179 @@ def phase_spade_train(dev, mapper, scene, counters, smi: str) -> dict:
     return {"zbuffer_argmin": launches["zbuffer_argmin"]}
 
 
+def phase_small_reference(dev, zbuf_mod) -> None:
+    """The reference-form fusion ops on a 128x96 camera, on the card vs on
+    the CPU, from one map (three frames fused on the CPU): the full-map
+    index map (build_index_map), association (associate), the fuse scatter
+    into the map viewed as a table (fuse_active) and the tail append
+    (append_flat), record for record; then index_resolve (the three-op
+    z-buffer) against K1 on the card at the index map's shape, exact."""
+    from surfelmapping_tpu_torch.config import MapConfig, PipelineParams
+    from surfelmapping_tpu_torch.io.synthetic import SyntheticScene, tiny_cam
+    from surfelmapping_tpu_torch.ops import active
+    from surfelmapping_tpu_torch.ops.association import associate
+    from surfelmapping_tpu_torch.ops.colors import encode_color
+    from surfelmapping_tpu_torch.ops.index_map import build_index_map
+    from surfelmapping_tpu_torch.ops.preprocess import preprocess_frame
+    from surfelmapping_tpu_torch.ops.transforms import invert_se3
+    from surfelmapping_tpu_torch.pipeline import SurfelMapper, stage_frame
+    from surfelmapping_tpu_torch.surfels import pack_records
+
+    cam, params = tiny_cam(128, 96), PipelineParams(fuse_thresh_factor=0.05)
+    scene = SyntheticScene(cam, step=0.4)
+    base = SurfelMapper(cam, params, MapConfig(capacity=1 << 14), device="cpu")
+    for i in range(3):
+        base.process_frame(*scene.frame(i))
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        smap = base.smap.clone().to(d)
+        rgb, depth, sem, pose = stage_frame(d, *scene.frame(3))
+        depth_f = preprocess_frame(depth, sem, cam, params)
+        T_inv = invert_se3(pose)
+        idx = build_index_map(smap, T_inv, 3.0, cam, params)
+        res = associate(depth_f, rgb, sem, idx, smap, pose, T_inv, 3.0, cam, params)
+        cb = active.checkerboard_flat
+        flat = active.AssocFlat(
+            x=cb(res.pos[..., 0]), y=cb(res.pos[..., 1]), z=cb(res.pos[..., 2]),
+            conf=cb(res.conf), colorsem=encode_color(cb(res.rgb), cb(res.sem)),
+            init_t=cb(res.init_t), last_t=cb(res.last_t), nx=cb(res.normal[..., 0]),
+            ny=cb(res.normal[..., 1]), nz=cb(res.normal[..., 2]), radius=cb(res.radius),
+            mark=cb(res.mark).long())
+        table = active.fuse_active(active.table_from_map(smap), flat)
+        fused, dropped = active.append_flat(active.map_from_table(table, smap.count.clone()),
+                                            flat)
+        runs[d.type] = dict(index=idx.cpu(), mark=res.mark.cpu(), dropped=int(dropped),
+                            pos=res.pos.cpu(), normal=res.normal.cpu(),
+                            records=pack_records(fused)[:int(fused.count)].cpu())
+    a, b = runs["cuda"], runs["cpu"]
+    for k in ("index", "mark", "pos", "normal", "records"):
+        if not torch.equal(a[k].view(torch.int32) if a[k].is_floating_point() else a[k],
+                           b[k].view(torch.int32) if b[k].is_floating_point() else b[k]):
+            raise AssertionError(f"small_reference: {k} differs card vs CPU")
+    n_rec = a["records"].shape[0]
+    merged, new = int((a["mark"] >= 0).sum()), int((a["mark"] == -1).sum())
+    if not (merged and new and a["dropped"] == 0 == b["dropped"]):
+        raise AssertionError(f"small_reference: merged {merged} new {new} dropped "
+                             f"{a['dropped']}/{b['dropped']}")
+
+    # index_resolve vs K1 at the index map's shape, random keys and many ties
+    P, A = 453_620, 1 << 20
+    resolved = {}
+    for case in ("random", "ties"):
+        zkey, fpix = k1_case(dev, P, A, 0.33)
+        if case == "ties":
+            zkey = torch.where(zkey == INT32_MAX, zkey, zkey % 64)
+        ids = torch.arange(A, dtype=torch.int32, device=dev)
+        want = active.index_resolve(zkey, fpix, ids, P, empty_to_minus1=False)
+        _, got = zbuf_mod.zbuffer_argmin(zkey, fpix, P)
+        if not torch.equal(got, want):
+            raise AssertionError(f"small_reference: K1 differs from index_resolve ({case}) on "
+                                 f"{int((got != want).sum())} pixels")
+        resolved[case] = int((want != INT32_MAX).sum())
+    emit("small_reference", camera="128x96", records=n_rec, merged=merged, new=new,
+         card_equals_cpu=True, index_resolve_equals_k1=True, k1_pixels_hit=resolved)
+
+
+# The least share of the single card's records that the two-rank map holds
+# bit for bit: the sound runs (NVIDIA H100 80GB HBM3, 700.00 W) hold
+# 0.9999989 (2 records of 1,797,147 differ, by the depth-key tie rule); a
+# fault in a few frames' merges on one rank moves thousands.
+RECORDS_SHARED_TWO_RANKS = 0.99995
+
+
+def phase_sharded(dev, cam, params, host: list, main_rate: dict, smi: str,
+                  n_frames: int = 36) -> dict:
+    """The sharded engine at KITTI resolution on the main phase's first
+    ``n_frames`` frames (ShardedMapper at the main phase's settings: 512
+    active blocks of 2048 slots, a sync every 10 frames), against a
+    single-card SurfelMapper at the same settings on the same frames:
+      (a) one rank over NCCL (this process, a process group of one): its
+          gathered map equals the single card's, count and sorted records
+          bit for bit;
+      (b) two ranks sharing the card over gloo (NCCL refuses two ranks on
+          one GPU), launched by the port's launcher: the same count and at
+          most ~90 records (a share of 0.99995) that differ from the single
+          card's bit for bit (a depth-key tie resolves to the smallest global
+          id, rank * S + slot, where the single card takes the smallest
+          slot; sound runs differ in 2 of ~1.8 M records, 0.9999989), K1
+          and K2 launched in both ranks every frame.
+    Each prints frames/s over its windows (frames 6-16, 16-26) beside the
+    main phase's, the card's busy share over frames 26-36 under the
+    profiler (both ranks' busy time over the wall time for (b)), the
+    collectives' bytes and time per frame, and K1's and K2's launches per
+    rank and frame.  Returns the launches of both runs, summed."""
+    import tempfile
+
+    from surfelmapping_tpu_torch.config import MapConfig
+    from surfelmapping_tpu_torch.parallel import distributed
+    from surfelmapping_tpu_torch.pipeline import SurfelMapper
+    from surfelmapping_tpu_torch.surfels import pack_records
+    from surfelmapping_tpu_torch.tools import sharded_jobs
+
+    capacity, sync, warm, window = 1 << 24, 10, 6, 10
+    single = SurfelMapper(cam, params, MapConfig(capacity=capacity, active_blocks=512,
+                                                 freeze_active_budget=True), sync_every=sync)
+    frames = [single.stage_frame(*f) for f in host[:n_frames]]
+    for f in frames:
+        single.process_frame(*f)
+    want = pack_records(single.smap)[:single.count].cpu().numpy()
+    res = {"card": smi, "frames": n_frames, "single_count": single.count,
+           "main_windows": main_rate["windows"]}
+    del single
+
+    with tempfile.TemporaryDirectory() as tmp:
+        comm = distributed.initialize(backend="nccl", init_method=f"file://{tmp}/rendezvous",
+                                      rank=0, world_size=1)
+        try:
+            one, smap = sharded_jobs.kitti_run(comm, frames, capacity, sync, warm, window)
+            got = pack_records(smap)[:int(smap.count)].cpu().numpy()
+        finally:
+            distributed.shutdown()
+    if one["count"] != res["single_count"] or got.shape != want.shape:
+        raise AssertionError(f"sharded (a): {one['count']} surfels vs {res['single_count']}")
+    rows = lambda r: r.view(np.int32)[np.lexsort(r.view(np.int32).T[::-1])]  # noqa: E731
+    if not np.array_equal(rows(got), rows(want)):
+        raise AssertionError("sharded (a): the one-rank map differs from the single card's")
+    res["nccl_one_rank"] = dict(one, records_bit_equal=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = distributed.python_module(
+            "surfelmapping_tpu_torch.tools.sharded_jobs", "kitti", "--out", tmp,
+            "--frames", str(n_frames), "--capacity", str(capacity), "--sync-every", str(sync),
+            "--warm", str(warm), "--window", str(window))
+        t0 = time.perf_counter()
+        results = distributed.spawn_ranks(cmd, 2, "gloo", timeout=300)
+        job_s = time.perf_counter() - t0
+        two = [json.loads(ln[len("RESULT "):]) for r in results
+               for ln in r.stdout.splitlines() if ln.startswith("RESULT ")]
+        got = np.load(Path(tmp) / "records.npy")
+    if len(two) != 2 or any(t["count"] != res["single_count"] for t in two):
+        raise AssertionError(f"sharded (b): counts {[t['count'] for t in two]} vs "
+                             f"{res['single_count']}")
+    a_rows = collections.Counter(map(bytes, got.view(np.int32)))
+    b_rows = collections.Counter(map(bytes, want.view(np.int32)))
+    share = sum((a_rows & b_rows).values()) / max(len(want), 1)
+    if got.shape != want.shape or share < RECORDS_SHARED_TWO_RANKS:
+        raise AssertionError(f"sharded (b): {share:.5f} of the records shared")
+    fused = n_frames - 1
+    for t in two:
+        if (t["launches"]["zbuffer_argmin"] < fused
+                or t["launches"]["preprocess_stencil"] < n_frames):
+            raise AssertionError(f"sharded (b): rank {t['rank']} launches {t['launches']}")
+    if (one["launches"]["zbuffer_argmin"] < fused
+            or one["launches"]["preprocess_stencil"] < n_frames):
+        raise AssertionError(f"sharded (a): launches {one['launches']}")
+    last = [t["windows"][-1] for t in two]
+    res["gloo_two_ranks"] = dict(
+        job_s=job_s, records_shared=share, ranks=two,
+        card_busy_share=sum(w["busy_ms"] for w in last) / max(w["wall_ms"] for w in last))
+    res["nccl_one_rank"]["card_busy_share"] = (one["windows"][-1]["busy_ms"]
+                                               / one["windows"][-1]["wall_ms"])
+    emit("sharded", **res)
+    return {k: one["launches"][k] + sum(t["launches"][k] for t in two)
+            for k in one["launches"]}
+
+
 def map_file(path: str) -> tuple[list, np.ndarray]:
     """A reference-format map file's (count, start_id, end_id) and its
     records as int32 words."""
@@ -1728,6 +1913,7 @@ def main() -> int:
     k2 = phase_k2(dev, cam, params)
     probe = phase_outres(dev, outres_mod)
     phase_small(dev)
+    phase_small_reference(dev, zbuf_mod)
     phase_small_icp(dev)
     mapper, scene, host, frames, fusion, main_rate = phase_main(dev, cam, params, counters, smi)
     phase_holds(dev, mapper, frames, zbuf_mod)
@@ -1741,8 +1927,11 @@ def main() -> int:
     tracking, (icp_mapper, icp_pose) = phase_icp_ba(dev, counters, smi)
     phase_icp_holds(dev, icp_mapper, icp_pose, zbuf_mod)
     dataset = phase_kitti_dir(dev, cam, params, scene, host, main_rate, counters, smi)
+    reset_counts(counters)
+    sharded = phase_sharded(dev, cam, params, host, main_rate, smi)
     emit("paths", launches=dict(main=fusion, render=render, probes=probes, icp_ba=tracking,
-                                spade=enhance, spade_train=training, kitti_dir=dataset))
+                                spade=enhance, spade_train=training, kitti_dir=dataset,
+                                sharded=sharded))
 
     k1i, k1r = k1["index"], k1["render"]
     table = [
@@ -1751,7 +1940,8 @@ def main() -> int:
              replaces="surfelmapping_tpu/ops/pallas_zbuf.py:188",
              launches=(fusion["zbuffer_argmin"] + render["zbuffer_argmin"]
                        + tracking["zbuffer_argmin"] + enhance["zbuffer_argmin"]
-                       + training["zbuffer_argmin"] + dataset["zbuffer_argmin"]),
+                       + training["zbuffer_argmin"] + dataset["zbuffer_argmin"]
+                       + sharded["zbuffer_argmin"]),
              max_abs_err=max(k1i["max_abs_err"], k1r["max_abs_err"]),
              ms=k1i["ms"], plain_ms=k1i["plain_ms"], bound_ms=k1i["bound_ms"],
              bound_by="bytes", library_ms=k1i["library_ms"], ms_device=k1i["ms_device"],
@@ -1765,7 +1955,8 @@ def main() -> int:
              library_ms_device_cold_render=k1r["library_ms_device_cold"]),
         dict(name="preprocess_stencil", route="cuda", source=k2_mod.KERNEL.repo_source,
              replaces="surfelmapping_tpu/ops/pallas_preprocess.py:188",
-             launches=fusion["preprocess_stencil"] + dataset["preprocess_stencil"],
+             launches=(fusion["preprocess_stencil"] + dataset["preprocess_stencil"]
+                       + sharded["preprocess_stencil"]),
              max_abs_err=k2["max_abs_err"],
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None, ms_device=k2["ms_device"],

@@ -15,9 +15,11 @@ surfelmapping_tpu/ba.py).
     (pose 0, pose 1) system into a quadratic prior on the new pose 0.
 
 Pose 0 always carries a prior (the gauge fix, then the marginalization
-prior), so the system is full rank.  The JAX package's ``axis_name`` (a psum
-of the per-frame systems over a map-sharded mesh) comes with the sharded
-engine; passing one raises.
+prior), so the system is full rank.  With a ``group`` (a
+parallel.distributed.Comm over ranks that each hold part of the evidence),
+the per-frame normal equations are all-reduced (SUM) before the
+normalization, as the JAX package psums them over its mesh axis; every rank
+then solves the identical system.
 """
 
 from __future__ import annotations
@@ -198,16 +200,15 @@ def refine_window(
     max_residual: float = 0.5,
     huber_delta: float = 0.05,
     damping: float = 1e-2,
-    axis_name: str | None = None,
+    group=None,
 ):
     """Gauss-Newton over the whole window against the active table ``at``
     (``ops.active.table_from_map(smap)`` for a whole map).  Only the
-    occupied frames are associated (one K1 call each per iteration).
+    occupied frames are associated (one K1 call each per iteration).  With
+    ``group`` (a parallel.distributed.Comm) the per-frame (A, b, n_inliers)
+    are summed over its ranks before the normalization.
 
     Returns (window with refined poses, {"inliers": 0-d device tensor})."""
-    if axis_name is not None:
-        raise NotImplementedError("the per-frame psum over a sharded map comes with the "
-                                  "sharded engine")
     K = win.poses.shape[0]
     dev = win.poses.device
     nv = min(win.n_valid, K)
@@ -225,6 +226,11 @@ def refine_window(
         db = torch.stack([b[1] for b in blocks] + [torch.zeros_like(win.prior_b)] * pad)
         n_in = torch.stack([b[2] for b in blocks]
                            + [torch.zeros((), dtype=torch.int32, device=dev)] * pad)
+        if group is not None:
+            # the cross-rank reduction of the per-frame systems (ba.py:274-277)
+            sums = group.all_reduce(torch.cat([dA.reshape(-1), db.reshape(-1)]), "sum")
+            dA, db = sums[:K * 36].view(K, 6, 6), sums[K * 36:].view(K, 6)
+            n_in = group.all_reduce(n_in, "sum")
         norm = _evidence(n_in)
         dA = dA * norm[:, None, None]
         db = db * norm[:, None]
@@ -383,12 +389,13 @@ class WindowedBA:
             prior_H=Hs, prior_b=bs, prior_T0=T0,
         )
 
-    def refine(self, at: ActiveTable, time: float, axis_name=None) -> np.ndarray:
-        """Gauss-Newton over the window; returns the refined newest pose
-        (4x4, read back to the host)."""
+    def refine(self, at: ActiveTable, time: float, group=None) -> np.ndarray:
+        """Gauss-Newton over the window (its evidence summed over ``group``'s
+        ranks, if given); returns the refined newest pose (4x4, read back to
+        the host)."""
         self.win, diag = refine_window(self.win, at, time, self.cam, self.params,
                                        self.stride, self.iters, self.odo_weight,
-                                       axis_name=axis_name)
+                                       group=group)
         self.last_diag = {k: int(v) for k, v in diag.items()}
         return self.win.poses[min(self.win.n_valid, self.K) - 1].cpu().numpy()
 

@@ -7,6 +7,7 @@ Usage:
         [--fuse-thresh F] [--clean] [--profile] [--device cuda|cpu]
         [--icp] [--ba] [--ba-window K] [--ba-odo-weight W] [--pose-noise SIGMA]
         [--gui | --gui-snapshots SNAPDIR] [--gui-render-every N]
+        [--devices D [--timeout S]]
     python -m surfelmapping_tpu_torch.build_map --synthetic N
         [--synthetic-cam kitti|small] [...the same options]
 
@@ -27,17 +28,29 @@ and the run prints the trajectory error against the input poses.
 v novel view into output/novel, l local model, q quit), ``--gui-snapshots``
 writes its figure as PNGs every ``--gui-render-every`` frames, and each of
 those frames renders the model panels on the card.  Runs on the CUDA card
-unless ``--device cpu`` is given.  (The sharded engine is not ported yet.)
+unless ``--device cpu`` is given.
+
+``--devices D`` (D > 1) runs the block-sharded engine (parallel/sharded.py)
+in D ranks, one process each, launched by this command: NCCL ranks, one per
+card, or with ``--device cpu`` D gloo ranks on the CPU.  With fewer cards
+than D and no ``--device cpu`` it raises.  Every rank reads the same frames;
+ICP/BA run on rank 0 against the gathered active table and its pose is
+broadcast; ``--clean`` gathers the shards once and replays on the
+single-card mapper; ``--gui`` runs on rank 0 and its keys are broadcast;
+rank 0 prints and writes the map.  ``--timeout`` bounds the job: when it
+passes, or when one rank fails, every rank is killed.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 import time as _time
 
 import numpy as np
+import torch
 
 
 class RandomWalkNoise:
@@ -67,10 +80,12 @@ class Tracker:
     frusta overlap heavily (true at KITTI frame spacing)."""
 
     def __init__(self, mapper, icp: bool = False, ba_window: int = 0,
-                 ba_odo_weight: float = 1e4):
+                 ba_odo_weight: float = 1e4, comm=None):
         from .ba import WindowedBA
 
         self.mapper = mapper
+        # a sharded mapper's ranks: rank 0 refines, every rank fuses its pose
+        self.comm = comm
         self.icp = icp
         self.ba = (WindowedBA(mapper.cam, mapper.params, window=ba_window,
                               odo_weight=ba_odo_weight, device=mapper.device)
@@ -84,18 +99,23 @@ class Tracker:
         m = self.mapper
         if (self.icp or self.ba is not None) and m.count > 0:
             _, depth_t, sem_t, pose_t = m.stage_frame(None, depth, sem, pose)
-            depth_m = preprocess_for_icp(depth_t, sem_t, m.cam, m.params)
-            at = m.active_table(pose_t)
-            seen = {}
-            if self.icp:
-                refined, diag = refine_pose(at, depth_m, pose_t, m.cam, m.params)
-                pose = refined.cpu().numpy()
-                seen["icp"] = int(diag["inliers"])
-            if self.ba is not None:
-                self.ba.push(depth_m, pose, at=at, time=float(fid))
-                pose = self.ba.refine(at, time=float(fid))
-                seen["ba"] = self.ba.last_diag["inliers"]
-            self.inliers.append(seen)
+            at = m.active_table(pose_t)  # collective on a sharded mapper
+            if self.comm is None or self.comm.rank == 0:
+                depth_m = preprocess_for_icp(depth_t, sem_t, m.cam, m.params)
+                seen = {}
+                if self.icp:
+                    refined, diag = refine_pose(at, depth_m, pose_t, m.cam, m.params)
+                    pose = refined.cpu().numpy()
+                    seen["icp"] = int(diag["inliers"])
+                if self.ba is not None:
+                    self.ba.push(depth_m, pose, at=at, time=float(fid))
+                    pose = self.ba.refine(at, time=float(fid))
+                    seen["ba"] = self.ba.last_diag["inliers"]
+                self.inliers.append(seen)
+            if self.comm is not None:
+                # every rank fuses rank 0's pose, bit for bit
+                t = torch.as_tensor(np.asarray(pose, np.float32), device=m.device).contiguous()
+                pose = self.comm.broadcast(t, 0).cpu().numpy()
         m.process_frame(rgb, depth, sem, pose)
         return np.asarray(pose, np.float32)
 
@@ -173,6 +193,86 @@ def gui_step(gui, mapper, history: list, frame: tuple, render_every: int,
     return n_novel
 
 
+_KEYS = ("quit", "want_save", "want_clean", "want_reset", "want_novel")
+
+
+def gui_step_sharded(gui, mapper, history: list, frame: tuple, render_every: int,
+                     n_novel: int) -> tuple[int, bool]:
+    """:func:`gui_step` on a sharded mapper, on every rank: ``gui`` is the
+    viewer on rank 0 and None elsewhere.  The map gathers (collective) at the
+    render cadence, and rank 0 renders.  The status and the capacity bar
+    show the live count and the true cursors of the last sync (the JAX loop
+    shows its worst-case estimate, build_map.py:252-254), read without a
+    sync: the ranks sync together or not at all.  Rank 0's keys reach every
+    rank by a broadcast, and every rank acts on them (c prints that the
+    sharded engine cleans only at the end, as the JAX loop does).  Returns
+    (the count of novel views taken, quit)."""
+    from .gui import panel_renders
+
+    comm = mapper.comm
+    fid, rgb, depth, sem, pose = frame
+    render = map_render = smap = None
+    if len(history) % render_every == 0 and mapper.count > 0:  # a sync on every rank
+        smap = mapper.smap()
+        if gui is not None:
+            render, map_render = panel_renders(mapper, smap, rgb, depth, sem, pose,
+                                               gui.map_view_pose(pose))
+    if gui is not None:
+        gui.update(rgb, np.asarray(depth, np.float32) / 1000.0, sem, render,
+                   status=f"frame {fid}  surfels={mapper.live}", pose=pose,
+                   map_render=map_render, capacity_used=int(mapper.tails.sum()),
+                   capacity_total=mapper.capacity)
+        gui.wait_if_paused()
+    keys = torch.tensor([int(bool(getattr(gui, k, False))) for k in _KEYS],
+                        dtype=torch.int32, device=mapper.device)
+    keys = dict(zip(_KEYS, comm.broadcast(keys, 0).tolist()))
+    if gui is not None:
+        for k in _KEYS[1:]:
+            setattr(gui, k, False)
+    if keys["want_save"]:
+        path = _time.strftime("surfel_map_%m_%d_%H:%M:%S.bin")
+        mapper.save_map(path, history[0][0], fid)
+        if gui is not None:
+            print(f"saved {path}")
+    if keys["want_clean"] and gui is not None:
+        print("clean: the sharded engine cleans at the end of a run (--clean)")
+    if keys["want_reset"]:
+        mapper.reset()
+        if gui is not None:
+            print("map reset")
+    if keys["want_novel"]:
+        from .views import acquire_images, random_novel_views
+
+        smap = mapper.smap()
+        if gui is not None:
+            views = random_novel_views([h[3] for h in history], 1, seed=n_novel)
+            acquire_images(smap, views, "output/novel", mapper.cam, start_id=n_novel,
+                           device=mapper.device)
+            print(f"acquired novel view {n_novel + 1}")
+        n_novel += 1
+    return n_novel, bool(keys["quit"])
+
+
+def launch_ranks(args, argv: list[str]) -> int:
+    """Run this command in ``args.devices`` ranks: gloo CPU ranks with
+    ``--device cpu``, else NCCL ranks, one per card (raises with fewer cards
+    than ranks).  Prints rank 0's output; returns 0 (a failed rank raises)."""
+    from .parallel.distributed import python_module, spawn_cpu_processes, spawn_ranks
+
+    D = args.devices
+    cmd = python_module(f"{__package__}.build_map", *argv)
+    if args.device == "cpu":
+        results = spawn_cpu_processes(cmd, D, timeout=args.timeout)
+    else:
+        n = torch.cuda.device_count()
+        if n < D:
+            raise RuntimeError(f"--devices {D} needs {D} CUDA cards, found {n}; "
+                               f"pass --device cpu to run {D} gloo ranks on the CPU")
+        results = spawn_ranks(cmd, D, "nccl", timeout=args.timeout)
+    print(results[0].stdout, end="", flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     from .io.kitti import DECODERS
 
@@ -218,14 +318,41 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true", help="print stage timings")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--devices", type=int, default=1, metavar="D",
+                    help="run the block-sharded engine in D ranks (D > 1): NCCL ranks on "
+                         "D cards, or gloo ranks on the CPU with --device cpu")
+    ap.add_argument("--timeout", type=float, default=86400.0,
+                    help="seconds after which a multi-rank job is killed, every rank")
     args = ap.parse_args(argv)
     if not args.synthetic and not args.dataset:
         ap.error("dataset directory or --synthetic N required")
+    if args.devices > 1 and "RANK" not in os.environ:
+        return launch_ranks(args, list(sys.argv[1:] if argv is None else argv))
+    comm = None
+    if args.devices > 1:
+        from .parallel.distributed import initialize, shutdown
 
+        comm = initialize(timeout_s=args.timeout)
+        if comm.size != args.devices:
+            raise RuntimeError(f"--devices {args.devices} in a job of {comm.size} ranks")
+    try:
+        return run(args, comm)
+    finally:
+        if comm is not None:
+            shutdown()
+
+
+def run(args, comm) -> int:
+    """The mapping run of :func:`main`'s parsed ``args``: on one card
+    (``comm`` None) or as one rank of a sharded job."""
     from .config import MapConfig, PipelineParams
     from .metrics import absolute_trajectory_error
+    from .parallel.sharded import ShardedMapper
     from .pipeline import SurfelMapper
+    from .surfels import resize_map
 
+    lead = comm is None or comm.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     params = PipelineParams()
     if args.fuse_thresh is not None:
         params = dataclasses.replace(params, fuse_thresh_factor=args.fuse_thresh)
@@ -242,17 +369,22 @@ def main(argv=None) -> int:
 
         reader = KittiReader(args.dataset, sub_level=args.sub_level, decoder=args.decoder)
         cam = reader.cam
-        print(f"dataset {args.dataset}: {len(reader)} frames, {cam.width}x{cam.height}, "
-              f"decoder {reader.decoder}")
+        say(f"dataset {args.dataset}: {len(reader)} frames, {cam.width}x{cam.height}, "
+            f"decoder {reader.decoder}")
         frames = dataset_frames(reader, args.frames)
     cam, pad = pad_to_even(cam)
-    mapper = SurfelMapper(cam, params, MapConfig(capacity=args.capacity),
-                          sync_every=args.sync_every, device=args.device)
+    if comm is None:
+        mapper = SurfelMapper(cam, params, MapConfig(capacity=args.capacity),
+                              sync_every=args.sync_every, device=args.device)
+    else:
+        mapper = ShardedMapper(comm, cam, params, capacity=args.capacity,
+                               sync_every=args.sync_every, device=args.device)
     tracker = Tracker(mapper, icp=args.icp, ba_window=args.ba_window if args.ba else 0,
-                      ba_odo_weight=args.ba_odo_weight)
+                      ba_odo_weight=args.ba_odo_weight, comm=comm)
     noise = RandomWalkNoise(args.pose_noise) if args.pose_noise else None
+    use_gui = bool(args.gui or args.gui_snapshots)
     gui = None
-    if args.gui or args.gui_snapshots:
+    if use_gui and lead:
         from .gui import MappingGUI
 
         gui = MappingGUI(cam, snapshot_dir=args.gui_snapshots,
@@ -260,9 +392,9 @@ def main(argv=None) -> int:
 
     t0 = _time.perf_counter()
     history, gt_poses = [], []
-    n_novel = 0
+    n_novel, stop = 0, False
     for fid, rgb, depth, sem, pose in frames:
-        if gui is not None and gui.quit:
+        if stop:
             break
         rgb, depth, sem = pad(rgb, depth, sem)
         gt_poses.append(pose)
@@ -271,11 +403,16 @@ def main(argv=None) -> int:
         pose = tracker.step(fid, rgb, depth, sem, pose)
         history.append((fid, depth, sem, pose))
         if len(history) % 20 == 0:
-            fps = len(history) / (_time.perf_counter() - t0)
-            print(f"frame {fid}: surfels={mapper.count} fps={fps:.2f}", flush=True)
-        if gui is not None:
-            n_novel = gui_step(gui, mapper, history, (fid, rgb, depth, sem, pose),
-                               args.gui_render_every, n_novel)
+            count = mapper.count
+            say(f"frame {fid}: surfels={count} "
+                f"fps={len(history) / (_time.perf_counter() - t0):.2f}", flush=True)
+        frame = (fid, rgb, depth, sem, pose)
+        if use_gui and comm is None:
+            n_novel = gui_step(gui, mapper, history, frame, args.gui_render_every, n_novel)
+            stop = gui.quit
+        elif use_gui:
+            n_novel, stop = gui_step_sharded(gui, mapper, history, frame,
+                                             args.gui_render_every, n_novel)
     if reader is not None:
         reader.close()
     if gui is not None:
@@ -283,25 +420,37 @@ def main(argv=None) -> int:
 
     if history and (args.icp or args.ba or args.pose_noise):
         ate = absolute_trajectory_error(np.stack([h[3] for h in history]), np.stack(gt_poses))
-        print(f"ATE (rmse vs input gt): {ate['rmse']:.4f} m "
-              f"(mean {ate['mean']:.4f}, max {ate['max']:.4f})")
+        say(f"ATE (rmse vs input gt): {ate['rmse']:.4f} m "
+            f"(mean {ate['mean']:.4f}, max {ate['max']:.4f})")
 
     if args.clean:
-        print("running backward cleanPoints pass ...")
+        say("running backward cleanPoints pass ...")
+        if comm is not None:
+            # a backward batch pass over the finished map: gather the shards
+            # once and replay on the single-card mapper (rank 0)
+            gathered = mapper.smap()
+            if not lead:
+                return 0
+            mapper = SurfelMapper(cam, params, MapConfig(capacity=args.capacity),
+                                  sync_every=args.sync_every, device=mapper.device)
+            cap = mapper.map_config.rounded_capacity(max(int(gathered.count), args.capacity))
+            mapper.smap = resize_map(gathered, cap)
+            mapper._refresh_counts()
         for _, depth, sem, pose in reversed(history):
             mapper.clean_points(depth, sem, pose)
-        print(f"after clean: surfels={mapper.count}")
+        say(f"after clean: surfels={mapper.count}")
 
     out = args.out or _time.strftime("surfel_map_%m_%d_%H:%M:%S.bin")
     start_id = history[0][0] if history else 0
     end_id = history[-1][0] if history else 0
-    mapper.save_map(out, start_id, end_id)
+    mapper.save_map(out, start_id, end_id)  # collective on a sharded mapper
     dt = _time.perf_counter() - t0
     n = len(history)
-    print(f"{out} saved: {mapper.count} surfels from {n} frames "
-          f"({n / dt:.2f} fps, {mapper.device})")
-    if args.profile:
-        print(mapper.stopwatch.report())
+    ranks = "" if comm is None else f", {comm.size} ranks"
+    say(f"{out} saved: {mapper.count} surfels from {n} frames "
+        f"({n / dt:.2f} fps, {mapper.device}{ranks})")
+    if args.profile and isinstance(mapper, SurfelMapper):
+        say(mapper.stopwatch.report())
     return 0
 
 

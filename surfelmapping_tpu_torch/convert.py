@@ -2,7 +2,8 @@
 
 The mapper has no weights: what carries over is the surfel map, the
 mapper's running state (last filtered depth, last pose, tick), an active
-table and a BA window.  Columns are read out of the JAX dataclasses with
+table, a BA window and the sharded engine's state (the JAX
+ShardedMapState's columns, split by device, are the ranks' shards).  Columns are read out of the JAX dataclasses with
 ``np.asarray``; a float32 ``colorsem`` column becomes the port's int32 bits
 by ``.view``, never by arithmetic, so subnormal colors survive.
 
@@ -24,6 +25,7 @@ import torch.nn as nn
 from .ba import BAWindow
 from .models.spade import SNConv2d, SPADENorm, build_modules, spectral_normalize
 from .ops.active import ActiveTable
+from .parallel.sharded import ShardedMapState
 from .surfels import COLUMNS, SurfelMap, empty_map
 
 
@@ -62,6 +64,29 @@ def mapper_state_from_numpy(mapper, cols: dict[str, np.ndarray], count: int,
     mapper.ref_frame_set = True
     mapper._clear_window()
     mapper._refresh_counts()
+
+
+def sharded_from_numpy(cols: dict[str, np.ndarray], counts, device: torch.device | str,
+                       rank: int | None = None):
+    """The port's shard of ``rank`` (or every rank's, as a list, when rank
+    is None) from a JAX ShardedMapState's numpy columns: ``cols`` of length
+    capacity, device r's slots at [r*S, (r+1)*S), and ``counts`` i32[D]."""
+    D = len(counts)
+    S = len(cols["px"]) // D
+
+    def one(r: int) -> ShardedMapState:
+        part = {k: v[r * S:(r + 1) * S] for k, v in cols.items()}
+        return ShardedMapState(map_from_numpy(part, int(counts[r]), device), r, D)
+
+    return [one(r) for r in range(D)] if rank is None else one(rank)
+
+
+def sharded_to_numpy(states: list[ShardedMapState]) -> tuple[dict[str, np.ndarray], np.ndarray]:
+    """(columns, counts) of a JAX ShardedMapState from every rank's shard,
+    in rank order (colorsem as float32 bits)."""
+    parts = [map_to_numpy(st.smap) for st in states]
+    cols = {k: np.concatenate([c[k] for c, _ in parts]) for k in COLUMNS}
+    return cols, np.array([n for _, n in parts], np.int32)
 
 
 def table_from_numpy(cols: dict[str, np.ndarray], device: torch.device | str) -> ActiveTable:

@@ -20,6 +20,12 @@ on frustum membership; the ``id > 0`` quirk (surfel 0 unmatchable,
 data.vert:142, conflict.geom:17) is applied on GLOBAL slot ids; the index
 image holds ACTIVE-table positions.
 
+The reference forms that the active engine replaced on the fusion path
+(``index_resolve``, the three-op z-buffer K1 is held to; ``fuse_active``;
+``append_flat``) and the shard forms of the frame's tail
+(``append_round_robin``, ``fuse_append_shard``, which parallel/sharded.py
+runs) close the module.
+
 Nothing here reads a value back to the host: out-of-range writes go to the
 map's spare slot (surfels.py), and no boolean-mask indexing is used.
 """
@@ -232,9 +238,11 @@ def conflict_active(
     max_depth: float,
     fuse_thresh: float,
     is_clean: bool,
+    gid_offset: int = 0,
 ) -> tuple[ActiveTable, torch.Tensor]:
     """conflict.vert/.geom + update_conf (src/GlobalModel.cpp:396-515) on the
-    active table; the conf decrement tombstones the surfel.
+    active table; the conf decrement tombstones the surfel.  ``gid_offset``
+    turns a shard's local slot ids into global ids (the sharded step).
 
     Returns (table, n_removed): n_removed counts surfels whose conf crossed
     <= 0 this pass."""
@@ -260,7 +268,7 @@ def conflict_active(
     violates = (d * lam - z * lam) > (fuse_thresh * z)
     live = at.slot_valid & (at.conf > 0.0)
     # id>0: surfel 0 exempt (conflict.geom:17), on the GLOBAL id
-    hit = live & (at.global_id > 0) & in_view & violates
+    hit = live & (at.global_id + gid_offset > 0) & in_view & violates
     new_conf = torch.where(hit, at.conf - p.conflict_conf_decrement, at.conf)
     n_removed = (hit & (new_conf <= 0.0)).sum(dtype=torch.int32)
     return dataclasses.replace(at, conf=new_conf), n_removed
@@ -276,11 +284,13 @@ def index_candidates(
     time: float,
     cam: CameraIntrinsics,
     params: PipelineParams,
+    gid_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The per-surfel half of predictIndices: depth key + target pixel.
 
     Gates: z>0, z<farClip, timeDelta freshness, pixel bounds, conf>0
-    (tombstones) and global id>0 (surfel 0 is unmatchable, data.vert:142).
+    (tombstones) and global id>0 (surfel 0 is unmatchable, data.vert:142;
+    ``gid_offset`` as in :func:`conflict_active`).
 
     Returns (zkey i32[A], INT32_MAX = invalid; fpix i32[A], H*W = invalid)."""
     factor = params.index_factor
@@ -292,12 +302,45 @@ def index_candidates(
     pj = torch.ceil(v).to(torch.int32) - 1
     inb = (pi >= 0) & (pi < W) & (pj >= 0) & (pj < H)
     valid = (
-        at.slot_valid & (at.conf > 0.0) & (at.global_id > 0)
+        at.slot_valid & (at.conf > 0.0) & (at.global_id + gid_offset > 0)
         & fresh & (z > 0.0) & (z < params.far_clip) & inb
     )
     key = _depth_key(z, valid)
     fpix = torch.where(valid, pj * W + pi, H * W).to(torch.int32)
     return key, fpix
+
+
+def index_resolve(
+    zkey: torch.Tensor,
+    fpix: torch.Tensor,
+    ids: torch.Tensor,
+    num_pix: int,
+    depth_buf: torch.Tensor | None = None,
+    empty_to_minus1: bool = True,
+) -> torch.Tensor:
+    """The z-buffer half of predictIndices in its three-op form (scatter-min
+    the keys, gather each candidate's pixel minimum, scatter-min the ids of
+    the winners): the winner ``ids`` per pixel, flat [num_pix] of ids'
+    dtype, -1 = empty.  K1 (ops/zbuf.py) computes the same function in one
+    kernel and is held to this one.  ``depth_buf`` lets a distributed caller
+    inject the all-reduced depth image between the passes; with
+    ``empty_to_minus1=False`` empties stay INT32_MAX, so the result can feed
+    a further MIN across ranks.  A pixel outside [0, num_pix) is dropped."""
+    P = num_pix
+    dev = zkey.device
+    pix = torch.where((fpix >= 0) & (fpix < P), fpix, P).long()
+    if depth_buf is None:
+        buf = torch.full((P + 1,), INT32_MAX, dtype=torch.int32, device=dev)
+        depth_buf = buf.scatter_reduce_(0, pix, zkey, "amin")[:P]
+    valid = zkey != INT32_MAX
+    win = depth_buf[torch.clamp(pix, max=P - 1)]
+    is_win = valid & (zkey == win)
+    id_buf = torch.full((P + 1,), INT32_MAX, dtype=ids.dtype, device=dev)
+    id_buf.scatter_reduce_(0, torch.where(is_win, pix, P), ids, "amin")
+    id_buf = id_buf[:P]
+    if not empty_to_minus1:
+        return id_buf
+    return torch.where(id_buf == INT32_MAX, -1, id_buf)
 
 
 def index_active(
@@ -563,3 +606,123 @@ def map_from_table(at: ActiveTable, count: torch.Tensor) -> SurfelMap:
 
     return SurfelMap(**{m: col(getattr(at, t)) for t, m in _TABLE_COLS.items()},
                      count=count)
+
+
+# ---------------------------------------------------------------------------
+# Reference and shard forms of the frame's tail
+# ---------------------------------------------------------------------------
+
+_APPEND_COLS = dict(_ASSOC_COLS, init_t="init_t")
+_TABLE_COLS_INV = {m: t for t, m in _TABLE_COLS.items()}
+
+
+def fuse_active(at: ActiveTable, assoc: AssocFlat) -> ActiveTable:
+    """fuse.vert scatter (src/GlobalModel.cpp:348-394) into the table: the
+    merged records over their target ACTIVE slots, as a new table (the input
+    is not written).  init_t is untouched (merges keep the old initTime).
+    Duplicate marks resolve to an arbitrary winner, like the GL point-scatter
+    race.  ``fuse_append_map`` replaced it on the fusion path: this is a
+    reference form that no path runs (the tests, chip_smoke's
+    ``small_reference``)."""
+    A = at.size
+    idx = torch.where(assoc.mark >= 0, assoc.mark, A)  # A: the spare slot
+
+    def sc(dst, src):
+        out = torch.cat([dst, dst.new_zeros(1)])
+        return out.index_copy_(0, idx, src)[:A]
+
+    return dataclasses.replace(
+        at, **{_TABLE_COLS_INV[m]: sc(getattr(at, _TABLE_COLS_INV[m]), getattr(assoc, a))
+               for m, a in _ASSOC_COLS.items()})
+
+
+def append_flat(smap: SurfelMap, assoc: AssocFlat) -> tuple[SurfelMap, torch.Tensor]:
+    """Append the mark == -1 records at the map tail, in place, in lattice
+    order (unstable.vert/.geom + concatenate, src/GlobalModel.cpp:581-637).
+    Returns (map, n_dropped).  A reference form that no path runs (the
+    fusion step appends through ``fuse_append_map``).
+
+    Both of the JAX function's branches, with their overflow rules:
+      * capacity >= Vp (the lattice size): the new records pack into a
+        [Vp] staging buffer that is written over the window of Vp slots at
+        the tail.  All or nothing, and conservatively so: it appends only if
+        count + Vp <= capacity, however few records are new;
+      * a smaller capacity: a direct scatter that appends what fits."""
+    is_new = assoc.mark == -1
+    Vp = is_new.shape[0]
+    cap = smap.capacity
+    dev = smap.device
+    offs = torch.cumsum(is_new.to(torch.int32), 0) - 1
+    n_new = torch.clamp(offs[-1] + 1, min=0).to(torch.int32)
+    if cap >= Vp:
+        fits = smap.count + Vp <= cap
+        lattice = torch.arange(Vp, device=dev)
+        window = torch.clamp(smap.count, 0, cap - Vp) + lattice
+        keep_new = (lattice < n_new) & fits
+        sidx = torch.where(is_new, offs, Vp)
+        for m, a in _APPEND_COLS.items():
+            src = getattr(assoc, a)
+            stage = src.new_zeros(Vp + 1).index_copy_(0, sidx, src)[:Vp]
+            col = getattr(smap, m)
+            col.index_copy_(0, window, torch.where(keep_new, stage, col[window]))
+        appended = torch.where(fits, n_new, 0)
+    else:
+        dest = smap.count + offs
+        idx = torch.where(is_new & (dest < cap), dest, cap)
+        for m, a in _APPEND_COLS.items():
+            getattr(smap, m).index_copy_(0, idx, getattr(assoc, a))
+        appended = torch.minimum(n_new, torch.clamp(cap - smap.count, min=0))
+    smap.count = smap.count + appended
+    return smap, n_new - appended
+
+
+def _dealt(assoc: AssocFlat, rank_mod: int, my_rank: int):
+    """The new records dealt to ``my_rank``: every rank_mod-th by lattice
+    rank r (r % rank_mod == my_rank) -> (bool mask, slot offset r // rank_mod,
+    count)."""
+    is_new = assoc.mark == -1
+    rank = torch.cumsum(is_new.to(torch.int32), 0) - 1
+    to_me = is_new & (rank % rank_mod == my_rank)
+    return to_me, rank // rank_mod, to_me.sum(dtype=torch.int32)
+
+
+def append_round_robin(smap: SurfelMap, assoc: AssocFlat, rank_mod: int,
+                       my_rank: int) -> tuple[SurfelMap, torch.Tensor]:
+    """Shard form of :func:`append_flat`, in place: append only the new
+    records dealt to ``my_rank``, packed at the local tail.  Round-robin
+    dealing keeps the shards balanced and makes the union of the shards the
+    single-map append's surfel set.  Appends what fits; returns
+    (map, n_dropped_local).  A reference form that no path runs (the
+    sharded step appends through :func:`fuse_append_shard`)."""
+    cap = smap.capacity
+    to_me, slot, n_mine = _dealt(assoc, rank_mod, my_rank)
+    dest = smap.count + slot
+    idx = torch.where(to_me & (dest < cap), dest, cap)
+    for m, a in _APPEND_COLS.items():
+        getattr(smap, m).index_copy_(0, idx, getattr(assoc, a))
+    appended = torch.minimum(n_mine, torch.clamp(cap - smap.count, min=0))
+    smap.count = smap.count + appended
+    return smap, n_mine - appended
+
+
+def fuse_append_shard(local: SurfelMap, at: ActiveTable, assoc: AssocFlat, rank_mod: int,
+                      my_rank: int) -> tuple[SurfelMap, torch.Tensor]:
+    """Shard form of :func:`fuse_append_map`, in place: block writeback + ONE
+    scatter per column of the merge writes (``at.global_id`` is the LOCAL
+    slot here) and of this shard's round-robin share of the new records
+    (dealt as :func:`append_round_robin` deals them).  Returns
+    (map, n_dropped_local)."""
+    local = writeback_active(local, at)
+    cap = local.capacity
+    matched = assoc.mark >= 0
+    to_me, slot, n_mine = _dealt(assoc, rank_mod, my_rank)
+    dest_new = local.count + slot
+    ok_new = to_me & (dest_new < cap)
+    dest_merge = at.global_id.index_select(0, torch.where(matched, assoc.mark, 0))
+    dest = torch.where(matched, dest_merge, torch.where(ok_new, dest_new, cap))
+    for m, a in _ASSOC_COLS.items():
+        getattr(local, m).index_copy_(0, dest, getattr(assoc, a))
+    local.init_t.index_copy_(0, torch.where(ok_new, dest_new, cap), assoc.init_t)
+    appended = torch.minimum(n_mine, torch.clamp(cap - local.count, min=0))
+    local.count = local.count + appended
+    return local, n_mine - appended

@@ -60,6 +60,53 @@ def _live_count(smap: SurfelMap) -> torch.Tensor:
     return (smap.column("conf") > 0.0).sum(dtype=torch.int32)
 
 
+def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        # pinned + non-blocking: a pageable copy would wait for the queue
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def stage_frame(dev: torch.device, rgb, depth, semantic, pose):
+    """Stage a frame on ``dev``.
+
+    Uploads the NARROW dtypes (u8 rgb/semantic, u16 depth) and widens on
+    the device; tensors already there pass through, so callers can
+    pre-stage frames.  ``None`` entries stay ``None``."""
+    if rgb is not None:
+        if not isinstance(rgb, torch.Tensor):
+            rgb_np = np.asarray(rgb)
+            if rgb_np.dtype != np.uint8 and np.issubdtype(rgb_np.dtype, np.integer):
+                rgb_np = rgb_np.astype(np.uint8)
+            rgb = _upload(rgb_np, dev)
+        rgb = rgb.to(dev)
+        if not rgb.is_floating_point():
+            rgb = unit_rgb(rgb)
+        elif rgb.dtype != torch.float32:
+            rgb = rgb.to(torch.float32)
+    if depth is not None and not isinstance(depth, torch.Tensor):
+        # u16 travels as its int16 bit pattern and is widened on the
+        # device (int16 -> int32 sign-extends; the mask restores u16)
+        raw = np.asarray(depth).astype(np.uint16).view(np.int16)
+        depth = _upload(raw, dev).to(dev).to(torch.int32) & 0xFFFF
+    if depth is not None:
+        depth = depth.to(dev)
+    if semantic is not None:
+        if not isinstance(semantic, torch.Tensor):
+            sem_np = np.asarray(semantic)
+            if sem_np.dtype not in (np.uint8, np.int8):
+                if sem_np.max(initial=0) < 256 and sem_np.min(initial=0) >= 0:
+                    sem_np = sem_np.astype(np.uint8)
+            semantic = _upload(sem_np, dev)
+        semantic = semantic.to(dev, torch.int32)
+    if pose is not None:
+        if not isinstance(pose, torch.Tensor):
+            pose = _upload(np.asarray(pose, np.float32), dev)
+        pose = pose.to(dev, torch.float32)
+    return rgb, depth, semantic, pose
+
+
 # ---------------------------------------------------------------------------
 # Step functions
 # ---------------------------------------------------------------------------
@@ -385,7 +432,7 @@ class SurfelMapper:
         camera-to-world.  Never truncated: the budget grows and the gather
         repeats until it covers the pose's working set."""
         self._repair_overflow()
-        pose = self._to_device(None, None, None, pose)[3]
+        pose = stage_frame(self.device, None, None, None, pose)[3]
         while True:
             eff = self._effective_active_blocks
             at, n_active = _gather_active_for(
@@ -407,62 +454,16 @@ class SurfelMapper:
         is associated or written to the map.  The GUI's local-model panel."""
         from .ops.local_model import local_surfel_model
 
-        rgb, depth, semantic, pose = self._to_device(rgb, depth, semantic, pose)
+        rgb, depth, semantic, pose = stage_frame(self.device, rgb, depth, semantic, pose)
         depth_m = metricize_depth(depth, self.cam, self.params)
         return local_surfel_model(depth_m, rgb, semantic, pose, float(self.tick),
                                   self.cam, self.params)
 
     # -- frame ingestion ----------------------------------------------------
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cuda":
-            # pinned + non-blocking: a pageable copy would wait for the queue
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
-
-    def _to_device(self, rgb, depth, semantic, pose):
-        """Stage a frame on the mapper's device.
-
-        Uploads the NARROW dtypes (u8 rgb/semantic, u16 depth) and widens on
-        the device; tensors already there pass through, so callers can
-        pre-stage frames.  ``None`` entries stay ``None``."""
-        dev = self.device
-        if rgb is not None:
-            if not isinstance(rgb, torch.Tensor):
-                rgb_np = np.asarray(rgb)
-                if rgb_np.dtype != np.uint8 and np.issubdtype(rgb_np.dtype, np.integer):
-                    rgb_np = rgb_np.astype(np.uint8)
-                rgb = self._upload(rgb_np)
-            rgb = rgb.to(dev)
-            if not rgb.is_floating_point():
-                rgb = unit_rgb(rgb)
-            elif rgb.dtype != torch.float32:
-                rgb = rgb.to(torch.float32)
-        if depth is not None and not isinstance(depth, torch.Tensor):
-            # u16 travels as its int16 bit pattern and is widened on the
-            # device (int16 -> int32 sign-extends; the mask restores u16)
-            raw = np.asarray(depth).astype(np.uint16).view(np.int16)
-            depth = self._upload(raw).to(dev).to(torch.int32) & 0xFFFF
-        if depth is not None:
-            depth = depth.to(dev)
-        if semantic is not None:
-            if not isinstance(semantic, torch.Tensor):
-                sem_np = np.asarray(semantic)
-                if sem_np.dtype not in (np.uint8, np.int8):
-                    if sem_np.max(initial=0) < 256 and sem_np.min(initial=0) >= 0:
-                        sem_np = sem_np.astype(np.uint8)
-                semantic = self._upload(sem_np)
-            semantic = semantic.to(dev, torch.int32)
-        if pose is not None:
-            if not isinstance(pose, torch.Tensor):
-                pose = self._upload(np.asarray(pose, np.float32))
-            pose = pose.to(dev, torch.float32)
-        return rgb, depth, semantic, pose
-
     def stage_frame(self, rgb, depth, semantic, pose):
         """Pre-stage a frame's arrays on the device (for prefetch pipelines)."""
-        return self._to_device(rgb, depth, semantic, pose)
+        return stage_frame(self.device, rgb, depth, semantic, pose)
 
     def process_frame(self, rgb, depth, semantic, pose) -> dict[str, Any]:
         """Ingest one frame (reference processFrame,
@@ -471,7 +472,7 @@ class SurfelMapper:
         sw = self.stopwatch
         # keep a host pose for the history without reading a staged one back
         pose_host = pose if isinstance(pose, np.ndarray) else None
-        rgb, depth, semantic, pose = self._to_device(rgb, depth, semantic, pose)
+        rgb, depth, semantic, pose = stage_frame(self.device, rgb, depth, semantic, pose)
         if pose_host is None:
             pose_host = pose
 
@@ -543,7 +544,7 @@ class SurfelMapper:
     def clean_points(self, depth, semantic, pose) -> None:
         """Backward ghost-removal replay (reference cleanPoints)."""
         self._refresh_counts()
-        _, depth, semantic, pose = self._to_device(None, depth, semantic, pose)
+        _, depth, semantic, pose = stage_frame(self.device, None, depth, semantic, pose)
         with self.stopwatch.time("Clean Points"):
             self._smap = _clean_step(self._smap, depth, semantic, pose,
                                      self.cam, self.params)

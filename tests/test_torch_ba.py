@@ -219,11 +219,30 @@ def test_ba_bridges_measurement_dropout(fused_scene):
         assert ba_err < odo_err, f"frame {i}: BA {ba_err:.4f} vs odometry {odo_err:.4f}"
 
 
+class _TwoEqualRanks:
+    """A group of two ranks that hold the same evidence: its SUM doubles."""
+
+    def all_reduce(self, t, op):
+        assert op == "sum"
+        return t.mul_(2)
+
+
 def test_refine_window_axis_name_waits_for_the_sharded_engine(fused_scene, windows):
+    """The sharded engine came: ``axis_name`` became ``group``, whose SUM of
+    the per-frame (A, b, n_inliers) runs before the normalization.  Two
+    ranks with equal evidence double every sum, the normalization by the
+    summed inliers halves it back exactly (powers of two), so the refine is
+    the one-rank refine bit for bit; the multi-rank job is
+    tests/test_torch_sharded.py::test_ba_cross_rank_reduction_matches_the_single_rank."""
     cam, params, _, _, _ = fused_scene
     _, twin, _, at = windows
-    with pytest.raises(NotImplementedError, match="sharded"):
+    with pytest.raises(TypeError, match="axis_name"):
         ba.refine_window(twin, at, 7.0, cam, params, axis_name="s")
+    want, wd = ba.refine_window(twin, at, 7.0, cam, params, stride=2, iters=2, odo_weight=300.0)
+    got, gd = ba.refine_window(twin, at, 7.0, cam, params, stride=2, iters=2, odo_weight=300.0,
+                               group=_TwoEqualRanks())
+    assert torch.equal(got.poses, want.poses)
+    assert int(gd["inliers"]) == 2 * int(wd["inliers"]) > 0
 
 
 def test_build_map_cli_tracks_with_icp_and_ba(tmp_path, capsys):

@@ -183,12 +183,14 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("entry", ["SurfelMapper", "render_view", "load_map", "ICPRefiner",
                                    "WindowedBA", "build_map", "SpadeTrainer", "spade_test",
                                    "spade_train", "build_map_dataset", "load_map_calib",
-                                   "local_model", "run_e2e"])
+                                   "local_model", "run_e2e", "ShardedMapper", "dryrun",
+                                   "sharded_jobs"])
 @pytest.mark.parametrize("device", [None, "cuda"])
 def test_entry_point_defaults_to_the_card(device, entry, tmp_path):
-    """The mapper, the renderer, the trackers, the SPADE model, the CLIs
-    (with dataset input too) and tools/run_e2e run on the card unless
-    asked for the CPU; without CUDA they raise rather than fall back."""
+    """The mapper (one card and sharded), the renderer, the trackers, the SPADE model, the CLIs
+    (with dataset input too), tools/run_e2e, the sharded dry run and the
+    sharded jobs run on the card unless asked for the CPU; without CUDA they
+    raise rather than fall back."""
     from PIL import Image
 
     from surfelmapping_tpu_torch import build_map, load_map, spade_test, spade_train
@@ -199,8 +201,11 @@ def test_entry_point_defaults_to_the_card(device, entry, tmp_path):
     from surfelmapping_tpu_torch.io.synthetic import SyntheticScene, tiny_cam
     from surfelmapping_tpu_torch.models.pix2pix import SpadeConfig, SpadeTrainer, init_variables
     from surfelmapping_tpu_torch.ops.splat import render_view
+    from surfelmapping_tpu_torch.parallel.distributed import Comm
+    from surfelmapping_tpu_torch.parallel import sharded
+    from surfelmapping_tpu_torch.parallel.sharded import ShardedMapper
     from surfelmapping_tpu_torch.pipeline import SurfelMapper
-    from surfelmapping_tpu_torch.tools import run_e2e
+    from surfelmapping_tpu_torch.tools import run_e2e, sharded_jobs
 
     path = str(tmp_path / "empty.bin")
     surfels.save_map(surfels.empty_map(8, "cpu"), path, 0, 1)
@@ -254,11 +259,16 @@ def test_entry_point_defaults_to_the_card(device, entry, tmp_path):
         "run_e2e": lambda: run_e2e.main(
             ["--workdir", str(tmp_path / "e2e"), "--synthetic-cam", "small", "--frames", "2"]
             + dev),
+        "ShardedMapper": lambda: ShardedMapper(Comm(None), tiny_cam(), device=device).device,
+        "dryrun": lambda: sharded.main(["--ranks", "1"] + dev),
+        "sharded_jobs": lambda: sharded_jobs.main(
+            ["distributed", "--out", str(tmp_path / "job")] + dev),
     }
     if torch.cuda.is_available():
         got = calls[entry]()
         assert got == 0 if entry in ("load_map", "build_map", "spade_test", "spade_train",
-                                     "build_map_dataset", "load_map_calib", "run_e2e") \
+                                     "build_map_dataset", "load_map_calib", "run_e2e",
+                                     "dryrun", "sharded_jobs") \
             else got.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
