@@ -85,6 +85,13 @@ Phases, each printed as one JSON line:
            spade_test from the checkpoint; wall ms per iteration, each
            step's card ms and launches vs its float32 bound, idle share,
            memory, first and last losses
+  spade_dp  SPADE data-parallel training at the same width on those K1
+           renders, two gloo ranks sharing the card: (a) a D and a G step
+           over the two ranks held against one process on the same batch,
+           the ranks' states bit-identical; (b) spade_train --devices 2, a
+           resume, the checkpoint read back bit for bit; (c) wall ms per
+           iteration at one process and two ranks, the gradient and batch
+           norm collectives' bytes and ms, idle share, memory per rank
   kitti_dir  the dataset path at KITTI resolution: the main phase's 100 frames
            written as a KITTI-layout directory (PNGs, calibration, poses),
            decoded bit-equal (PIL, or the native libpng library where it
@@ -101,7 +108,7 @@ Phases, each printed as one JSON line:
            window, the card's busy share, the collectives' bytes and ms per
            frame, K1 and K2 launches per rank and frame
 Each path (main, render, probes, icp_ba, spade, spade_train, kitti_dir, sharded) is driven with every launch
-count set to 0 just before it and read just after.  Kernel times are by CUDA events
+count set to 0 just before it and read just after; spade_dp runs no kernel of the port.  Kernel times are by CUDA events
 (tools/timing.py), warm in L2: ``ms`` and ``library_ms`` over calls issued
 back to back (the larger of the host's and the card's time per call);
 ``ms_device`` and ``library_ms_device`` with the host's launches queued
@@ -124,6 +131,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -131,14 +139,16 @@ import numpy as np
 import torch
 
 # the port itself: in a directory without it this import fails
-from surfelmapping_tpu_torch.tools.compare import (flat, float32_gradients_held, gap_summary,
-                                                   grad_gaps)
+from surfelmapping_tpu_torch.tools.compare import (flat, float32_gradients_held,
+                                                   float32_steps_held, gap_summary, grad_gaps,
+                                                   step_gaps)
 from surfelmapping_tpu_torch.tools.timing import HBM_BYTES_PER_S, cuda_ms, cuda_ms_cold
 from surfelmapping_tpu_torch.tools.timing import card_line as smi_line
 
 SEED = 0
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 TRAIN_WARM, TRAIN_TIMED = 4, 64  # spade_train: iterations before and in its timed window (even)
+DP_WARM, DP_TIMED = 4, 16  # spade_dp: the same, for each job (even)
 # spade_train's kernels by kind, the first pattern that matches a kernel's name: cuDNN's
 # direct and implicit-GEMM convolutions, its FFT convolutions (the transforms and the
 # complex float2 GEMVs between them), real GEMVs (the spectral norms' power steps)
@@ -165,27 +175,31 @@ def device_profile(fn, calls: int = 8, tries: int = 3) -> tuple[int, float]:
     kernels over ``calls`` calls, per call, rounded (a trace now and then
     drops a kernel of a single call), and their device ms per call.
 
-    Every ``fn`` measured here launches at least one kernel per call, so a
-    trace with fewer device events than ``calls`` lost events in the
-    profiler (on the H100 one trace in about a hundred came back with next
-    to none): it is taken again, up to ``tries`` times, and each loss is
-    printed.  A trace that stays short is returned as it is, and the
-    caller's launch check fails on it."""
+    The profiler loses events now and then: on the H100 one trace in about
+    a hundred came back with next to none, and once a probe kernel's trace
+    came back with half of them.  So two traces are taken and the one with
+    more events is kept; every ``fn`` measured here launches at least one
+    kernel per call, so a trace with fewer events than ``calls`` is printed
+    as a loss and taken again, up to ``tries`` traces.  A trace that stays
+    short is returned as it is, and the caller's launch check fails on it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    traces = []
     for attempt in range(1, tries + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         events = device_events(prof)
-        n_events = sum(e.count for e in events)
-        if n_events >= calls:
+        traces.append((sum(e.count for e in events), events))
+        if traces[-1][0] < calls:
+            emit("profiler", lost_trace=attempt, of=tries, events=traces[-1][0], calls=calls)
+        elif len(traces) >= 2:
             break
-        emit("profiler", lost_trace=attempt, of=tries, events=n_events, calls=calls)
-    return (round(sum(e.count for e in events) / calls),
+    n_events, events = max(traces, key=lambda t: t[0])
+    return (round(n_events / calls),
             sum(e.self_device_time_total for e in events) / 1e3 / calls)
 
 
@@ -1297,7 +1311,7 @@ def phase_small_spade_train(dev) -> None:
     emit("small_spade_train", **res)
 
 
-def phase_spade_train(dev, mapper, scene, counters, smi: str) -> dict:
+def phase_spade_train(dev, mapper, scene, counters, smi: str, root: Path) -> dict:
     """SPADE training at the JAX CLI's defaults (ngf 64, ndf 64, crop 256,
     batch 1, num_d 2, n_layers_d 4, VGG19 on with random init, d_steps_per_g
     2) on views of the main phase's map: render_view (K1) -> the u8 label
@@ -1305,7 +1319,8 @@ def phase_spade_train(dev, mapper, scene, counters, smi: str) -> dict:
     RGB there as the real images, both as PNGs.  Then the port's spade_train
     CLI for 2 epochs x 10 steps, a resume with --continue-train for one
     more epoch of decay (epochs 2 and 3 from the cursor iter.txt records),
-    and spade_test on one view from the written checkpoint.  Held: every
+    and spade_test on one view from the written checkpoint; the PNGs stay
+    under ``root`` (label/, image/) for the spade_dp phase.  Held: every
     loss finite, the G and D params moved, the checkpoint read back bit for
     bit, the enhanced frame keeps the rendered pixels where the semantic is
     not 0.  Measured on the resumed state, in the CLI's pattern (a D step
@@ -1318,8 +1333,6 @@ def phase_spade_train(dev, mapper, scene, counters, smi: str) -> dict:
     kernels of one iteration with a G step (the top ten, and the card time
     and launches of each TRAIN_KERNEL_GROUPS kind),
     peak memory, and the losses of the first and last logged iterations."""
-    import tempfile
-
     from PIL import Image
 
     from surfelmapping_tpu_torch import spade_test, spade_train
@@ -1335,132 +1348,130 @@ def phase_spade_train(dev, mapper, scene, counters, smi: str) -> dict:
     reset_counts(counters)
     torch.cuda.reset_peak_memory_stats()
     res = {"card": smi, "frames": ids}
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        dirs = {k: root / k for k in ("label", "image", "semantic", "enhanced")}
-        for d in list(dirs.values())[:3]:
-            d.mkdir()
+    dirs = {k: root / k for k in ("label", "image", "semantic", "enhanced")}
+    for d in list(dirs.values())[:3]:
+        d.mkdir()
+    t0 = time.perf_counter()
+    for i in ids:
+        rgb, _, _, pose = scene.frame(i)
+        label, sem = (t.cpu().numpy() for t in render_u8(render_view(mapper.smap, pose,
+                                                                     mapper.cam)))
+        name = f"{i:06d}.png"
+        Image.fromarray(label).save(dirs["label"] / name)
+        Image.fromarray(sem).save(dirs["semantic"] / name)
+        Image.fromarray(rgb).save(dirs["image"] / name)
+    res["render_s"] = time.perf_counter() - t0
+    ckpt = root / "ckpt"
+    argv = ["--label-dir", str(dirs["label"]), "--image-dir", str(dirs["image"]),
+            "--niter", "1", "--niter-decay", "1", "--steps-per-epoch", "10",
+            "--log-every", "1", "--display-every", "10", "--ckpt-dir", str(ckpt)]
+    for run, extra in (("train", []), ("resume", ["--continue-train"])):
+        if run == "resume":
+            argv[argv.index("--niter-decay") + 1] = "2"
         t0 = time.perf_counter()
-        for i in ids:
-            rgb, _, _, pose = scene.frame(i)
-            label, sem = (t.cpu().numpy() for t in render_u8(render_view(mapper.smap, pose,
-                                                                         mapper.cam)))
-            name = f"{i:06d}.png"
-            Image.fromarray(label).save(dirs["label"] / name)
-            Image.fromarray(sem).save(dirs["semantic"] / name)
-            Image.fromarray(rgb).save(dirs["image"] / name)
-        res["render_s"] = time.perf_counter() - t0
-        ckpt = root / "ckpt"
-        argv = ["--label-dir", str(dirs["label"]), "--image-dir", str(dirs["image"]),
-                "--niter", "1", "--niter-decay", "1", "--steps-per-epoch", "10",
-                "--log-every", "1", "--display-every", "10", "--ckpt-dir", str(ckpt)]
-        for run, extra in (("train", []), ("resume", ["--continue-train"])):
-            if run == "resume":
-                argv[argv.index("--niter-decay") + 1] = "2"
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(io.StringIO()) as log:
-                rc = spade_train.main(argv + extra)
-            torch.cuda.synchronize()
-            res[f"{run}_s"] = time.perf_counter() - t0
-            if rc != 0 or (run == "resume" and "restored checkpoint" not in log.getvalue()):
-                raise AssertionError(f"spade_train: the {run} run failed (rc {rc})")
-        res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-        lines = [ln for ln in (ckpt / "loss_log.txt").read_text().splitlines()
-                 if ln.startswith("(epoch")]
-        losses = [{k.rstrip(":"): float(v) for k, v in zip(ln.split(")")[1].split()[::2],
-                                                          ln.split(")")[1].split()[1::2])}
-                  for ln in lines]
-        res.update(logged_iterations=len(losses), first_losses=losses[0], last_losses=losses[-1],
-                   last_g_losses=[d for d in losses if "g_total" in d][-1])
-        finite = all(math.isfinite(v) for d in losses for v in d.values())
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            rc = spade_train.main(argv + extra)
+        torch.cuda.synchronize()
+        res[f"{run}_s"] = time.perf_counter() - t0
+        if rc != 0 or (run == "resume" and "restored checkpoint" not in log.getvalue()):
+            raise AssertionError(f"spade_train: the {run} run failed (rc {rc})")
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    lines = [ln for ln in (ckpt / "loss_log.txt").read_text().splitlines()
+             if ln.startswith("(epoch")]
+    losses = [{k.rstrip(":"): float(v) for k, v in zip(ln.split(")")[1].split()[::2],
+                                                      ln.split(")")[1].split()[1::2])}
+              for ln in lines]
+    res.update(logged_iterations=len(losses), first_losses=losses[0], last_losses=losses[-1],
+               last_g_losses=[d for d in losses if "g_total" in d][-1])
+    finite = all(math.isfinite(v) for d in losses for v in d.values())
 
-        raw = (ckpt / "latest.msgpack").read_bytes()
-        res["checkpoint_bytes"] = len(raw)
-        trainer = SpadeTrainer(cfg)  # the card
-        state = trainer.state_from_numpy(load_train_state(str(ckpt / "latest.msgpack")))
-        round_trip = packb(trainer.state_to_numpy(state)) == raw
-        init = init_state_numpy(cfg)  # the CLI's init
-        moved = {net: sum(not np.array_equal(a, flat(init[f"{net}_params"])[k])
-                          for k, a in flat(load_train_state(str(ckpt / "latest.msgpack"))
-                                           [f"{net}_params"]).items())
-                 for net in ("g", "d")}
-        del raw
-        res.update(params_moved=moved, checkpoint_round_trip=round_trip, step=state.step,
-                   g_adam_count=state.g_opt.count, d_adam_count=state.d_opt.count)
+    raw = (ckpt / "latest.msgpack").read_bytes()
+    res["checkpoint_bytes"] = len(raw)
+    trainer = SpadeTrainer(cfg)  # the card
+    state = trainer.state_from_numpy(load_train_state(str(ckpt / "latest.msgpack")))
+    round_trip = packb(trainer.state_to_numpy(state)) == raw
+    init = init_state_numpy(cfg)  # the CLI's init
+    moved = {net: sum(not np.array_equal(a, flat(init[f"{net}_params"])[k])
+                      for k, a in flat(load_train_state(str(ckpt / "latest.msgpack"))
+                                       [f"{net}_params"]).items())
+             for net in ("g", "d")}
+    del raw
+    res.update(params_moved=moved, checkpoint_round_trip=round_trip, step=state.step,
+               g_adam_count=state.g_opt.count, d_adam_count=state.d_opt.count)
 
-        ds = PairedRenderDataset(str(dirs["label"]), str(dirs["image"]), crop_size=cfg.crop_size,
-                                 load_size=int(cfg.crop_size * 1.12), seed=1)
-        batches = [tuple(torch.from_numpy(a) for a in b)
-                   for b in ds.batches(1, TRAIN_WARM + TRAIN_TIMED)]
+    ds = PairedRenderDataset(str(dirs["label"]), str(dirs["image"]), crop_size=cfg.crop_size,
+                             load_size=int(cfg.crop_size * 1.12), seed=1)
+    batches = [tuple(torch.from_numpy(a) for a in b)
+               for b in ds.batches(1, TRAIN_WARM + TRAIN_TIMED)]
 
-        def iteration(i, lab, img):
-            trainer.d_step(state, lab, img)
-            if i % 2 == 0:
-                trainer.g_step(state, lab, img)
+    def iteration(i, lab, img):
+        trainer.d_step(state, lab, img)
+        if i % 2 == 0:
+            trainer.g_step(state, lab, img)
 
-        wall, host = [], []
-        for i, (lab, img) in enumerate(batches):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            iteration(i, lab, img)
-            t1 = time.perf_counter()
-            torch.cuda.synchronize()
-            host.append((t1 - t0) * 1e3)
-            wall.append((time.perf_counter() - t0) * 1e3)
-        wall, host = wall[TRAIN_WARM:], host[TRAIN_WARM:]
-        lab, img = batches[0]
-        d_launch, d_ms = device_profile(lambda: trainer.d_step(state, lab, img), calls=3)
-        g_launch, g_ms = device_profile(lambda: trainer.g_step(state, lab, img), calls=3)
-        from torch.profiler import ProfilerActivity, profile
+    wall, host = [], []
+    for i, (lab, img) in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        iteration(i, lab, img)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        host.append((t1 - t0) * 1e3)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    wall, host = wall[TRAIN_WARM:], host[TRAIN_WARM:]
+    lab, img = batches[0]
+    d_launch, d_ms = device_profile(lambda: trainer.d_step(state, lab, img), calls=3)
+    g_launch, g_ms = device_profile(lambda: trainer.g_step(state, lab, img), calls=3)
+    from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            iteration(0, lab, img)  # a D step and a G step
-            torch.cuda.synchronize()
-        kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                          for e in device_events(prof)), key=lambda k: -k[1])
-        groups = {}
-        for k, t, c in kernels:
-            g = next((g for g, pat in TRAIN_KERNEL_GROUPS if re.search(pat, k, re.I)), "other")
-            ms, n = groups.get(g, (0.0, 0))
-            groups[g] = (ms + t, n + c)
-        res["d_and_g_step_kernels"] = dict(
-            device_ms=sum(k[1] for k in kernels), launches=sum(k[2] for k in kernels),
-            groups={g: dict(device_ms=t, launches=n) for g, (t, n) in groups.items()},
-            top=[dict(name=k[:100], device_ms=t, launches=c) for k, t, c in kernels[:10]])
-        flops = train_step_flops(cfg, 1)
-        busy = d_ms + g_ms / 2
-        wall_ms = statistics.mean(wall)
-        half = len(wall) // 2
-        res.update(
-            host_cpu=host_cpu(), timed_iterations=len(wall),
-            wall_ms_per_iteration=wall_ms, wall_ms_spread=spread(wall),
-            wall_ms_per_iteration_halves=[statistics.mean(wall[:half]),
-                                          statistics.mean(wall[half:])],
-            wall_ms_with_g_step=spread(wall[::2]), wall_ms_d_step_only=spread(wall[1::2]),
-            host_ms_per_iteration=statistics.mean(host), host_ms_spread=spread(host),
-            iterations_per_s=1e3 / wall_ms, d_step_ms_device=d_ms, g_step_ms_device=g_ms,
-            d_step_launches=d_launch, g_step_launches=g_launch,
-            launches_per_iteration=d_launch + g_launch / 2,
-            host_us_per_launch=statistics.mean(host) * 1e3 / (d_launch + g_launch / 2),
-            flops=flops,
-            d_step_f32_bound_ms=flops["d_step"] / F32_OPS_PER_S * 1e3,
-            g_step_f32_bound_ms=flops["g_step"] / F32_OPS_PER_S * 1e3,
-            share_of_f32_bound=(flops["d_step"] + flops["g_step"]) / F32_OPS_PER_S * 1e3
-            / (d_ms + g_ms),
-            device_busy_ms_per_iteration=busy, device_idle_share=max(0.0, 1.0 - busy / wall_ms),
-            cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
-        del trainer, state
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        iteration(0, lab, img)  # a D step and a G step
+        torch.cuda.synchronize()
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in device_events(prof)), key=lambda k: -k[1])
+    groups = {}
+    for k, t, c in kernels:
+        g = next((g for g, pat in TRAIN_KERNEL_GROUPS if re.search(pat, k, re.I)), "other")
+        ms, n = groups.get(g, (0.0, 0))
+        groups[g] = (ms + t, n + c)
+    res["d_and_g_step_kernels"] = dict(
+        device_ms=sum(k[1] for k in kernels), launches=sum(k[2] for k in kernels),
+        groups={g: dict(device_ms=t, launches=n) for g, (t, n) in groups.items()},
+        top=[dict(name=k[:100], device_ms=t, launches=c) for k, t, c in kernels[:10]])
+    flops = train_step_flops(cfg, 1)
+    busy = d_ms + g_ms / 2
+    wall_ms = statistics.mean(wall)
+    half = len(wall) // 2
+    res.update(
+        host_cpu=host_cpu(), timed_iterations=len(wall),
+        wall_ms_per_iteration=wall_ms, wall_ms_spread=spread(wall),
+        wall_ms_per_iteration_halves=[statistics.mean(wall[:half]),
+                                      statistics.mean(wall[half:])],
+        wall_ms_with_g_step=spread(wall[::2]), wall_ms_d_step_only=spread(wall[1::2]),
+        host_ms_per_iteration=statistics.mean(host), host_ms_spread=spread(host),
+        iterations_per_s=1e3 / wall_ms, d_step_ms_device=d_ms, g_step_ms_device=g_ms,
+        d_step_launches=d_launch, g_step_launches=g_launch,
+        launches_per_iteration=d_launch + g_launch / 2,
+        host_us_per_launch=statistics.mean(host) * 1e3 / (d_launch + g_launch / 2),
+        flops=flops,
+        d_step_f32_bound_ms=flops["d_step"] / F32_OPS_PER_S * 1e3,
+        g_step_f32_bound_ms=flops["g_step"] / F32_OPS_PER_S * 1e3,
+        share_of_f32_bound=(flops["d_step"] + flops["g_step"]) / F32_OPS_PER_S * 1e3
+        / (d_ms + g_ms),
+        device_busy_ms_per_iteration=busy, device_idle_share=max(0.0, 1.0 - busy / wall_ms),
+        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+    del trainer, state
 
-        name = f"{ids[0]:06d}.png"
-        with contextlib.redirect_stdout(io.StringIO()):
-            rc = spade_test.main(["--ckpt", str(ckpt / "latest.msgpack"), "--label-dir",
-                                  str(dirs["label"]), "--semantic-dir", str(dirs["semantic"]),
-                                  "--out", str(dirs["enhanced"]), "--limit", "1"])
-        final, label, sem = (np.asarray(Image.open(dirs[k] / name))
-                             for k in ("enhanced", "label", "semantic"))
-        kept = bool(rc == 0 and final.shape == label.shape
-                    and np.array_equal(final[sem != 0], label[sem != 0]))
-        res.update(enhanced=name, hole_share=float((sem == 0).mean()), rendered_pixels_kept=kept)
+    name = f"{ids[0]:06d}.png"
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = spade_test.main(["--ckpt", str(ckpt / "latest.msgpack"), "--label-dir",
+                              str(dirs["label"]), "--semantic-dir", str(dirs["semantic"]),
+                              "--out", str(dirs["enhanced"]), "--limit", "1"])
+    final, label, sem = (np.asarray(Image.open(dirs[k] / name))
+                         for k in ("enhanced", "label", "semantic"))
+    kept = bool(rc == 0 and final.shape == label.shape
+                and np.array_equal(final[sem != 0], label[sem != 0]))
+    res.update(enhanced=name, hole_share=float((sem == 0).mean()), rendered_pixels_kept=kept)
     launches = read_counts(counters)
     res["launches"] = launches
     emit("spade_train", **res)
@@ -1471,6 +1482,135 @@ def phase_spade_train(dev, mapper, scene, counters, smi: str) -> dict:
         raise AssertionError(f"spade_train: K1 launched {launches['zbuffer_argmin']} times "
                              f"for {len(ids)} labels")
     return {"zbuffer_argmin": launches["zbuffer_argmin"]}
+
+
+def spade_dp_job(root: Path, ranks: int) -> tuple[list, bytes, float]:
+    """tools/spade_dp_jobs ``steps`` at the CLI's defaults, float32, on the
+    spade_train phase's PNGs under ``root``: a global batch of 2 over
+    ``ranks`` gloo ranks sharing the card (NCCL refuses two ranks on one
+    GPU), a D step and a G step, then DP_WARM + DP_TIMED iterations.
+    Returns each rank's JSON line in rank order, rank 0's state file after
+    the two steps (every rank's is checked to be the same bytes), and the
+    job's seconds."""
+    from surfelmapping_tpu_torch.parallel import distributed
+
+    out = root / f"dp{ranks}"
+    cmd = distributed.python_module(
+        "surfelmapping_tpu_torch.tools.spade_dp_jobs", "steps", "--out", str(out),
+        "--label-dir", str(root / "label"), "--image-dir", str(root / "image"), "--batch", "2",
+        "--timed", str(DP_WARM + DP_TIMED), "--warm", str(DP_WARM))
+    t0 = time.perf_counter()
+    distributed.spawn_ranks(cmd, ranks, "gloo", timeout=600)
+    job_s = time.perf_counter() - t0
+    lines = [json.loads((out / f"rank{r}.json").read_text()) for r in range(ranks)]
+    raw = [(out / f"rank{r}.msgpack").read_bytes() for r in range(ranks)]
+    if any(r != raw[0] for r in raw) or not all(ln["ranks_identical"] for ln in lines):
+        raise AssertionError(f"spade_dp: the {ranks} ranks' states differ")
+    return lines, raw[0], job_s
+
+
+def phase_spade_dp(root: Path, smi: str) -> None:
+    """SPADE data-parallel training at the CLI's defaults (ngf 64, ndf 64,
+    crop 256, num_d 2, n_layers_d 4, VGG19 on) on the spade_train phase's
+    K1-rendered label and image PNGs under ``root``, two gloo ranks sharing
+    the card.  It runs no kernel of the port: its labels are the
+    spade_train phase's K1 renders, counted there.
+      (a) Hold: a D step and a G step on a global batch of 2, one image per
+          rank, against one process on the same batch on the card, as
+          compare.float32_steps_held holds them (the global losses within
+          1e-4 relative, the gradients by compare.float32_gradients_held in
+          its flipped form, the stored SN and BN state within 1e-5, the
+          parameters within 2 lr); both ranks' states the same bytes, and
+          the same by a checksum all-reduced with MIN and MAX; 1 collective
+          in the D step, 37 (one per batch norm forward and backward, and
+          the gradients) in the G step.
+      (b) CLI: ``python -m surfelmapping_tpu_torch.spade_train --devices 2
+          --batch 2`` in two gloo ranks for 3 iterations, then resumed with
+          --continue-train for one more epoch of decay: rank 0's checkpoint
+          reads back bit for bit, the logged losses are finite, the Adam
+          counts are the iterations'.
+      (c) Timing, one process (batch 2) and two ranks (1 image each) in the
+          CLI's pattern: wall ms per iteration over DP_TIMED iterations
+          after DP_WARM, with its spread; each rank's busy ms per iteration
+          (torch.profiler) and the card's idle share; the gradient
+          collective's bytes and ms per D and per G step, the batch norms'
+          collectives per G step (count, bytes, ms; the ms replayed by
+          sharded_jobs.collective_ms); the peak memory per rank."""
+    from surfelmapping_tpu_torch.models.checkpoint import load_train_state, packb, unpackb
+    from surfelmapping_tpu_torch.models.pix2pix import SpadeConfig, SpadeTrainer
+    from surfelmapping_tpu_torch.parallel import distributed
+
+    cfg = SpadeConfig()
+    res = {"card": smi, "host_cpu": host_cpu()}
+    one, one_raw, one_s = spade_dp_job(root, 1)
+    two, two_raw, two_s = spade_dp_job(root, 2)
+    gaps = step_gaps(unpackb(two_raw), unpackb(one_raw), two[0]["logs"], one[0]["logs"])
+    held = float32_steps_held(gaps)
+    calls = {k: v["calls"] for k, v in two[0]["collectives"].items()}
+    held = held and calls == {"d_step": 1, "g_step": 2 * two[0]["spade_norms"] + 1}
+    res["hold"] = dict(gaps, losses_one_process=one[0]["logs"], losses_two_ranks=two[0]["logs"],
+                       collective_calls=calls, ranks_bit_identical=True)
+    del one_raw, two_raw
+
+    ckpt = root / "dp_ckpt"
+    argv = ["--label-dir", str(root / "label"), "--image-dir", str(root / "image"),
+            "--batch", "2", "--devices", "2", "--niter", "1", "--niter-decay", "0",
+            "--steps-per-epoch", "3", "--log-every", "1", "--display-every", "2",
+            "--ckpt-dir", str(ckpt), "--timeout", "600"]
+    cli = {}
+    for run, extra in (("train", []), ("resume", ["--continue-train"])):
+        if run == "resume":
+            argv[argv.index("--niter-decay") + 1] = "1"
+        t0 = time.perf_counter()
+        out = distributed.spawn_ranks(distributed.python_module(
+            "surfelmapping_tpu_torch.spade_train", *argv, *extra), 2, "gloo", timeout=600)
+        cli[f"{run}_s"] = time.perf_counter() - t0
+        if "2 ranks over gloo" not in out[0].stdout or (
+                run == "resume" and "restored checkpoint" not in out[0].stdout):
+            raise AssertionError(f"spade_dp: the CLI's {run} run: {out[0].stdout[-2000:]}")
+    lines = [ln for ln in (ckpt / "loss_log.txt").read_text().splitlines()
+             if ln.startswith("(epoch")]
+    losses = [float(v) for ln in lines for v in ln.split(")")[1].split()[1::2]]
+    raw = (ckpt / "latest.msgpack").read_bytes()
+    trainer = SpadeTrainer(cfg)  # the card
+    state = trainer.state_from_numpy(load_train_state(str(ckpt / "latest.msgpack")))
+    cli.update(logged_iterations=len(lines), losses_finite=all(map(math.isfinite, losses)),
+               checkpoint_round_trip=packb(trainer.state_to_numpy(state)) == raw,
+               iter_txt=(ckpt / "iter.txt").read_text().split(),
+               g_adam_count=state.g_opt.count, d_adam_count=state.d_opt.count,
+               images=len(os.listdir(ckpt / "web" / "images")))
+    del trainer, state, raw
+    res["cli"] = cli
+
+    n_d, n_g = two[0]["d_params"], two[0]["g_params"]
+    grad_bytes = {"d_step": (n_d + 1) * 4, "g_step": (n_g + 4) * 4}  # the logs ride along
+    bn_bytes = two[0]["collectives"]["g_step"]["bytes"] - grad_bytes["g_step"]
+    wall = statistics.mean(r["wall_ms"] for r in two)
+    res["timing"] = dict(
+        one_process=dict(wall_ms=one[0]["wall_ms"], wall_ms_spread=spread(one[0]["wall_ms_all"]),
+                         busy_ms=one[0]["busy_ms_per_iteration"],
+                         profiled_wall_ms=one[0]["profiled_wall_ms"],
+                         top_kernels=one[0]["top_kernels"],
+                         device_idle_share=1 - one[0]["busy_ms_per_iteration"] / one[0]["wall_ms"],
+                         max_memory_allocated=one[0]["max_memory_allocated"], job_s=one_s),
+        two_ranks=dict(wall_ms=wall, wall_ms_spread=[spread(r["wall_ms_all"]) for r in two],
+                       busy_ms=[r["busy_ms_per_iteration"] for r in two],
+                       profiled_wall_ms=[r["profiled_wall_ms"] for r in two],
+                       top_kernels=two[0]["top_kernels"],
+                       device_idle_share=1 - sum(r["busy_ms_per_iteration"] for r in two) / wall,
+                       max_memory_allocated=[r["max_memory_allocated"] for r in two],
+                       job_s=two_s),
+        g_params=n_g, d_params=n_d, spade_norms=two[0]["spade_norms"],
+        grad_collective_bytes=grad_bytes,
+        grad_collective_ms=dict(d_step=two[0]["collective_ms"]["d_grad"],
+                                g_step=two[0]["collective_ms"]["g_grad"]),
+        batch_norm_collectives_per_g_step=dict(
+            count=two[0]["collectives"]["g_step"]["calls"] - 1, bytes=bn_bytes,
+            ms=two[0]["collective_ms"]["g_batch_norms"]))
+    emit("spade_dp", **res)
+    if not (held and cli["losses_finite"] and cli["checkpoint_round_trip"]
+            and cli["g_adam_count"] == 6 and cli["d_adam_count"] == 9):
+        raise AssertionError(f"spade_dp: held {held}, CLI {cli}")
 
 
 def phase_small_reference(dev, zbuf_mod) -> None:
@@ -1574,8 +1714,6 @@ def phase_sharded(dev, cam, params, host: list, main_rate: dict, smi: str,
     profiler (both ranks' busy time over the wall time for (b)), the
     collectives' bytes and time per frame, and K1's and K2's launches per
     rank and frame.  Returns the launches of both runs, summed."""
-    import tempfile
-
     from surfelmapping_tpu_torch.config import MapConfig
     from surfelmapping_tpu_torch.parallel import distributed
     from surfelmapping_tpu_torch.pipeline import SurfelMapper
@@ -1687,8 +1825,6 @@ def phase_kitti_dir(dev, cam, params, scene, host: list, main_rate: dict, counte
     share over frames 60-80, the decoder's host ms per frame and the
     upload's (stage_frame of a frame's host arrays, to a synchronize)."""
     import importlib.util
-    import tempfile
-
     from PIL import Image
 
     from surfelmapping_tpu_torch import build_map, load_map, surfels
@@ -1922,7 +2058,9 @@ def main() -> int:
     phase_small_spade(dev)
     enhance = phase_spade(dev, mapper, views, counters, smi)
     phase_small_spade_train(dev)
-    training = phase_spade_train(dev, mapper, scene, counters, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        training = phase_spade_train(dev, mapper, scene, counters, smi, Path(tmp))
+        phase_spade_dp(Path(tmp), smi)
     probes = phase_probes(counters)
     tracking, (icp_mapper, icp_pose) = phase_icp_ba(dev, counters, smi)
     phase_icp_holds(dev, icp_mapper, icp_pose, zbuf_mod)

@@ -253,26 +253,6 @@ def gui_step_sharded(gui, mapper, history: list, frame: tuple, render_every: int
     return n_novel, bool(keys["quit"])
 
 
-def launch_ranks(args, argv: list[str]) -> int:
-    """Run this command in ``args.devices`` ranks: gloo CPU ranks with
-    ``--device cpu``, else NCCL ranks, one per card (raises with fewer cards
-    than ranks).  Prints rank 0's output; returns 0 (a failed rank raises)."""
-    from .parallel.distributed import python_module, spawn_cpu_processes, spawn_ranks
-
-    D = args.devices
-    cmd = python_module(f"{__package__}.build_map", *argv)
-    if args.device == "cpu":
-        results = spawn_cpu_processes(cmd, D, timeout=args.timeout)
-    else:
-        n = torch.cuda.device_count()
-        if n < D:
-            raise RuntimeError(f"--devices {D} needs {D} CUDA cards, found {n}; "
-                               f"pass --device cpu to run {D} gloo ranks on the CPU")
-        results = spawn_ranks(cmd, D, "nccl", timeout=args.timeout)
-    print(results[0].stdout, end="", flush=True)
-    return 0
-
-
 def main(argv=None) -> int:
     from .io.kitti import DECODERS
 
@@ -327,7 +307,11 @@ def main(argv=None) -> int:
     if not args.synthetic and not args.dataset:
         ap.error("dataset directory or --synthetic N required")
     if args.devices > 1 and "RANK" not in os.environ:
-        return launch_ranks(args, list(sys.argv[1:] if argv is None else argv))
+        from .parallel.distributed import launch_ranks
+
+        return launch_ranks(f"{__package__}.build_map",
+                            list(sys.argv[1:] if argv is None else argv), args.devices,
+                            args.device, args.timeout)
     comm = None
     if args.devices > 1:
         from .parallel.distributed import initialize, shutdown

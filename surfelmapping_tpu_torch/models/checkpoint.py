@@ -192,13 +192,19 @@ def packb(obj) -> bytes:
     raise TypeError(f"msgpack: cannot pack {type(obj).__name__}")
 
 
-def save_train_state(path: str, tree: dict) -> None:
+def save_train_state(path: str, tree: dict | None, comm=None) -> None:
     """Write a training state's flax-layout tree (``SpadeTrainer.state_to_numpy``)
-    as the JAX package's ``latest.msgpack``; the file is replaced whole."""
-    tmp = f"{path}.tmp"
-    with open(tmp, "wb") as f:
-        f.write(packb(tree))
-    os.replace(tmp, path)
+    as the JAX package's ``latest.msgpack``; the file is replaced whole.
+    In a data-parallel job (``comm``, a ``parallel.distributed.Comm``;
+    collective) rank 0 writes its tree, the others pass None, and every
+    rank returns once the file is whole (``Comm.barrier``)."""
+    if comm is None or comm.rank == 0:
+        tmp = f"{path}.tmp"
+        with open(tmp, "wb") as f:
+            f.write(packb(tree))
+        os.replace(tmp, path)
+    if comm is not None:
+        comm.barrier()
 
 
 def load_train_state(path: str) -> dict:

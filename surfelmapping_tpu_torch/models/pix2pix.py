@@ -21,6 +21,23 @@ torch form:
     statistics); ``step`` counts G steps;
   * linear LR decay after ``niter`` epochs (pix2pix_trainer.py:66-86).
 Everything runs in float32 with TF32 off for convolutions and matmuls.
+
+Data parallel (the JAX CLI's sharded jit over a ``data`` mesh): a trainer
+with a ``parallel.distributed.Comm`` of D ranks takes each step on the
+rank's rows of the global batch (:func:`shard_batch`), and the step equals
+the one-process step on the global batch:
+  * the generator's batch norms take the global statistics
+    (``spade.SPADENorm.batch_statistics``);
+  * each rank weights its batch means (hinge, feature matching, VGG) by 1/D
+    and keeps its KLD, a sum over the batch, whole; the SUM over the ranks
+    of the gradients is then the global loss's gradient.  (The JAX
+    ``axis_name`` form, a pmean of the gradients, scales the KLD's by 1/D;
+    its CLI takes the sharded jit, which this follows);
+  * the gradients, flattened into one buffer with the logs at its end, are
+    summed in ONE all-reduce per step, so every rank's Adam moves the same
+    parameters by the same bytes and the logs are global values;
+  * the VAE noise is drawn for the global batch from the same generator on
+    every rank, and each rank takes its rows.
 """
 
 from __future__ import annotations
@@ -33,6 +50,8 @@ import torch.nn as nn
 
 from .. import convert
 from ..ops.transforms import full_precision_matmul
+from ..parallel.distributed import Comm
+from ..parallel.distributed import shard_rows as shard_batch  # the JAX package's name
 from ..pipeline import resolve_device
 from .losses import (VGG19Features, feature_matching_loss, kld_loss, load_vgg19_weights,
                      multiscale_hinge_d, multiscale_hinge_g, vgg_loss)
@@ -226,12 +245,17 @@ class SpadeTrainer(nn.Module):
     :meth:`state_from_numpy`.  The VAE's noise is drawn from two
     ``torch.Generator``s on the device seeded with constants (the JAX
     package folds the step into a PRNG key: the same distribution, not its
-    bits)."""
+    bits).  With a ``comm`` of more than one rank the steps are data
+    parallel (see the module docstring): every rank calls them together, on
+    its rows of the batch."""
 
-    def __init__(self, cfg: SpadeConfig, variables: dict | None = None, device=None):
+    def __init__(self, cfg: SpadeConfig, variables: dict | None = None, device=None,
+                 comm: Comm | None = None):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.comm = comm
+        self.world = 1 if comm is None else comm.size
         full_precision_matmul()
         self.gen = self.enc = None
         if variables is not None:
@@ -270,7 +294,7 @@ class SpadeTrainer(nn.Module):
         :func:`init_state_numpy` (a JAX TrainState's state dict, or a
         checkpoint read by ``checkpoint.load_train_state``)."""
         cfg, dev = self.cfg, self.device
-        gen, enc = build_modules(cfg, "meta")
+        gen, enc = build_modules(cfg, "meta", self.comm)
         g = gen if enc is None else nn.ModuleDict({"gen": gen, "enc": enc})
         g = convert.load_numpy(g, {"params": tree["g_params"],
                                    "batch_stats": tree["g_batch_stats"]}, dev, trainable=True)
@@ -324,13 +348,15 @@ class SpadeTrainer(nn.Module):
                   rng: torch.Generator, noise: torch.Tensor | None):
         """(fake in [-1, 1], (mu, logvar) or None).  With a VAE
         (pix2pix_model.py:135-150) z = mu + exp(logvar / 2) * noise, the
-        noise drawn from ``rng`` unless given (NHWC-free: (B, z_dim))."""
+        noise of the global batch ((B * ranks, z_dim)) drawn from ``rng``
+        unless given, and this rank's rows of it taken."""
         kld_aux, z = None, None
         if state.enc is not None:
             mu, logvar = state.enc(real)
             if noise is None:
-                noise = torch.randn(mu.shape, generator=rng, device=self.device,
-                                    dtype=mu.dtype)
+                noise = torch.randn((mu.shape[0] * self.world, mu.shape[1]), generator=rng,
+                                    device=self.device, dtype=mu.dtype)
+            noise, = shard_batch(self.comm, noise)
             z = mu + torch.exp(0.5 * logvar) * noise.to(self.device, mu.dtype)
             kld_aux = (mu, logvar)
         return torch.tanh(state.gen.logits(seg, z)), kld_aux
@@ -344,13 +370,30 @@ class SpadeTrainer(nn.Module):
         feats = d(both)
         return [[f[:n] for f in s] for s in feats], [[f[n:] for f in s] for s in feats]
 
+    @torch.no_grad()
+    def _sum_over_ranks(self, grads: list[torch.Tensor], logs: dict) -> tuple[list, dict]:
+        """The gradients and the logs summed over the ranks in ONE all-reduce
+        (collective): the gradients flattened into one buffer, the logs at
+        its end.  As given at one rank."""
+        if self.world == 1:
+            return grads, logs
+        ref = grads[0]
+        tail = [torch.as_tensor(v, dtype=ref.dtype, device=ref.device).detach().reshape(1)
+                for v in logs.values()]
+        buf = torch.cat([g.reshape(-1) for g in grads] + tail)
+        self.comm.all_reduce(buf, "sum")
+        parts = buf.split([g.numel() for g in grads] + [1] * len(tail))
+        return ([p.view_as(g) for p, g in zip(parts, grads)],
+                {k: p[0] for k, p in zip(logs, parts[len(grads):])})
+
     # -- steps ----------------------------------------------------------------
 
     def g_step(self, state: TrainState, label: torch.Tensor, real: torch.Tensor,
                noise: torch.Tensor | None = None) -> tuple[TrainState, dict]:
         """One generator step on NHWC ``label`` and ``real`` batches in
-        [-1, 1]: G (and the encoder) in training mode, D in eval mode; the
-        losses as 0-d tensors in ``logs``."""
+        [-1, 1] (the rank's rows; ``noise`` is the global batch's): G (and
+        the encoder) in training mode, D in eval mode; the losses, global,
+        as 0-d tensors in ``logs``."""
         cfg = self.cfg
         seg, img = _nchw(label, self.device), _nchw(real, self.device)
         state.g.train()
@@ -362,20 +405,24 @@ class SpadeTrainer(nn.Module):
             l_fm = feature_matching_loss(real_feats, fake_feats, LAMBDA_FEAT)
             l_vgg = vgg_loss(state.vgg, fake, img, LAMBDA_VGG) if cfg.use_vgg else 0.0
             l_kld = kld_loss(*kld_aux) * cfg.lambda_kld if kld_aux is not None else 0.0
-            total = l_gan + l_fm + l_vgg + l_kld
+            # this rank's part of the global batch's means; the KLD sums over the batch
+            total = (l_gan + l_fm + l_vgg) / self.world + l_kld
             grads = torch.autograd.grad(total, state.g_opt.params)  # none for D
-        state.g_opt.update(grads)
-        state.step += 1
-        logs = {"g_gan": l_gan, "g_fm": l_fm, "g_vgg": l_vgg}
+        logs = {"g_gan": l_gan / self.world, "g_fm": l_fm / self.world,
+                "g_vgg": l_vgg / self.world}
         if kld_aux is not None:
             logs["g_kld"] = l_kld
         logs["g_total"] = total
+        grads, logs = self._sum_over_ranks(grads, logs)
+        state.g_opt.update(grads)
+        state.step += 1
         return state, {k: v.detach() if torch.is_tensor(v) else v for k, v in logs.items()}
 
     def d_step(self, state: TrainState, label: torch.Tensor, real: torch.Tensor,
                noise: torch.Tensor | None = None) -> tuple[TrainState, dict]:
         """One discriminator step: G in eval mode (BN at its running
-        statistics) makes the fake, D in training mode."""
+        statistics) makes the fake, D in training mode; as :meth:`g_step`
+        across ranks."""
         seg, img = _nchw(label, self.device), _nchw(real, self.device)
         state.g.eval()
         with torch.no_grad():
@@ -383,7 +430,8 @@ class SpadeTrainer(nn.Module):
         state.d.train()
         with torch.enable_grad():
             fake_feats, real_feats = self._discriminate(state.d, seg, fake, img)
-            loss = multiscale_hinge_d(real_feats, fake_feats)
+            loss = multiscale_hinge_d(real_feats, fake_feats) / self.world
             grads = torch.autograd.grad(loss, state.d_opt.params)
+        grads, logs = self._sum_over_ranks(grads, {"d_total": loss.detach()})
         state.d_opt.update(grads)
-        return state, {"d_total": loss.detach()}
+        return state, logs

@@ -20,6 +20,11 @@ running statistics; ``u`` and ``sigma``).  Submodules carry the flax module
 names (``Conv_0``, ``conv_s``, ``fc_vae``...), so a flax variable path reads
 as a module path.  Tensors are NCHW.  The modules are built on the ``meta``
 device.
+
+Data-parallel training hands the generator a ``parallel.distributed.Comm``
+(flax's ``axis_name``): its SPADE norms then take the batch statistics over
+every rank's rows.  The encoder and the discriminator normalize each sample
+on its own (instance norm) and take none, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel.distributed import Comm, sum_over_ranks
 
 LRELU_SLOPE = 0.2
 BN_EPS = 1e-5
@@ -144,10 +151,12 @@ class SPADENorm(nn.Module):
     normalizes with its running statistics; in training mode with the
     batch's, taken as flax takes them (the biased "fast" variance
     max(0, E[x^2] - E[x]^2) over N, H and W), and it moves the running
-    statistics by ``BN_MOMENTUM`` towards them."""
+    statistics by ``BN_MOMENTUM`` towards them.  With a ``comm`` of more
+    than one rank, the batch is every rank's rows (:meth:`batch_statistics`)."""
 
-    def __init__(self, norm_nc: int, device=None):
+    def __init__(self, norm_nc: int, device=None, comm: Comm | None = None):
         super().__init__()
+        self.comm = comm
         self.register_buffer("mean", torch.empty(norm_nc, device=device))
         self.register_buffer("var", torch.empty(norm_nc, device=device))
         self.Conv_0 = _conv3(LABEL_NC, NHIDDEN, device)
@@ -157,8 +166,7 @@ class SPADENorm(nn.Module):
     def forward(self, x: torch.Tensor, segmap: torch.Tensor) -> torch.Tensor:
         mean, var = self.mean, self.var
         if self.training:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            mean, var = self.batch_statistics(x)
             with torch.no_grad():
                 self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
                 self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
@@ -168,6 +176,20 @@ class SPADENorm(nn.Module):
         actv = F.relu(self.Conv_0(seg))
         return normalized * (1.0 + self.Conv_1(actv)) + self.Conv_2(actv)
 
+    def batch_statistics(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(mean, fast variance) per channel over N, H and W.  Across ranks
+        (collective) each rank sums x and x^2 over its rows as one [2, C]
+        tensor, the ranks add theirs (:func:`sum_over_ranks`, which also
+        adds the statistics' gradients in the backward) and divide by the
+        global count: every rank holds the same number of rows."""
+        if self.comm is None or self.comm.size == 1:
+            mean = x.mean(dim=(0, 2, 3))
+            return mean, torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        sums = torch.stack([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3))])
+        moments = sum_over_ranks(sums, self.comm) / (x.numel() // x.shape[1] * self.comm.size)
+        mean = moments[0]
+        return mean, torch.clamp_min(moments[1] - mean * mean, 0.0)
+
 
 class SPADEResnetBlock(nn.Module):
     """architecture.py:21-70: spectral-normed convs after SPADE norms, and a
@@ -176,16 +198,16 @@ class SPADEResnetBlock(nn.Module):
     # flax numbers the block's SpectralNorm wrappers in this order
     SN_CONVS = ("conv_0", "conv_1", "conv_s")
 
-    def __init__(self, fin: int, fout: int, device=None):
+    def __init__(self, fin: int, fout: int, device=None, comm: Comm | None = None):
         super().__init__()
         fmiddle = min(fin, fout)
         self.learned_shortcut = fin != fout
-        self.norm_0 = SPADENorm(fin, device)
+        self.norm_0 = SPADENorm(fin, device, comm)
         self.conv_0 = SNConv2d(fin, fmiddle, 3, padding=1, device=device)
-        self.norm_1 = SPADENorm(fmiddle, device)
+        self.norm_1 = SPADENorm(fmiddle, device, comm)
         self.conv_1 = SNConv2d(fmiddle, fout, 3, padding=1, device=device)
         if self.learned_shortcut:
-            self.norm_s = SPADENorm(fin, device)
+            self.norm_s = SPADENorm(fin, device, comm)
             self.conv_s = SNConv2d(fin, fout, 1, bias=False, device=device)
 
     def forward(self, x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
@@ -202,12 +224,13 @@ def _up(x: torch.Tensor) -> torch.Tensor:
 class SPADEGenerator(nn.Module):
     """generator.py:25-120 ('normal': 5 up layers, 7 SPADE blocks).  The
     output is (sh * 32, sw * 32) of :func:`latent_hw`, whatever the label's
-    size."""
+    size.  ``comm`` goes to every SPADE norm."""
 
     BLOCKS = ("head_0", "G_middle_0", "G_middle_1", "up_0", "up_1", "up_2", "up_3")
 
     def __init__(self, ngf: int = 64, crop_size: int = 256, aspect_ratio: float = 1.0,
-                 use_vae: bool = False, z_dim: int = 256, device=None):
+                 use_vae: bool = False, z_dim: int = 256, device=None,
+                 comm: Comm | None = None):
         super().__init__()
         nf = ngf
         self.latent_hw = latent_hw(crop_size, aspect_ratio)
@@ -219,7 +242,7 @@ class SPADEGenerator(nn.Module):
             self.fc = _conv3(LABEL_NC, 16 * nf, device)
         widths = (16, 16, 16, 16, 8, 4, 2, 1)
         for name, fin, fout in zip(self.BLOCKS, widths[:-1], widths[1:]):
-            setattr(self, name, SPADEResnetBlock(fin * nf, fout * nf, device))
+            setattr(self, name, SPADEResnetBlock(fin * nf, fout * nf, device, comm))
         self.conv_img = _conv3(nf, 3, device)
 
     def logits(self, seg: torch.Tensor, z: torch.Tensor | None = None) -> torch.Tensor:
@@ -319,10 +342,12 @@ class MultiscaleDiscriminator(nn.Module):
         return outs
 
 
-def build_modules(cfg, device=None) -> tuple[SPADEGenerator, ConvEncoder | None]:
-    """The generator, and the encoder when ``cfg.use_vae``, of a
-    ``models.pix2pix.SpadeConfig`` (pix2pix.py:84-97)."""
+def build_modules(cfg, device=None,
+                  comm: Comm | None = None) -> tuple[SPADEGenerator, ConvEncoder | None]:
+    """The generator (its batch norms over ``comm``'s ranks), and the
+    encoder when ``cfg.use_vae``, of a ``models.pix2pix.SpadeConfig``
+    (pix2pix.py:84-97)."""
     gen = SPADEGenerator(ngf=cfg.ngf, crop_size=cfg.crop_size, aspect_ratio=cfg.aspect_ratio,
-                         use_vae=cfg.use_vae, z_dim=cfg.z_dim, device=device)
+                         use_vae=cfg.use_vae, z_dim=cfg.z_dim, device=device, comm=comm)
     enc = ConvEncoder(ndf=cfg.ndf, z_dim=cfg.z_dim, device=device) if cfg.use_vae else None
     return gen, enc

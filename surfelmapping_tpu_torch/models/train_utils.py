@@ -9,6 +9,9 @@ surfelmapping_tpu/models/train_utils.py; reference SPADE/util parity).
   * save_options / load_options — pickles the parsed options next to the
     checkpoint and writes the human-readable ``opt.txt`` so a resumed run
     trains under identical flags (ref SPADE/options/base_options.py:118-146).
+
+In a data-parallel job each takes the job's ``comm`` and only rank 0 writes
+(and the Visualizer prints); every rank keeps the same cursor.
 """
 
 from __future__ import annotations
@@ -20,8 +23,13 @@ import time
 import numpy as np
 
 
+def _lead(comm) -> bool:
+    """Whether this process writes: no job, or rank 0 of one."""
+    return comm is None or comm.rank == 0
+
+
 class IterationCounter:
-    """Epoch/iter cursor with ``iter.txt`` persistence."""
+    """Epoch/iter cursor with ``iter.txt`` persistence (written by rank 0)."""
 
     def __init__(
         self,
@@ -31,7 +39,9 @@ class IterationCounter:
         niter: int,
         niter_decay: int,
         continue_train: bool = False,
+        comm=None,
     ):
+        self.lead = _lead(comm)
         self.dataset_size = dataset_size
         self.batch_size = batch_size
         self.first_epoch = 1
@@ -75,16 +85,14 @@ class IterationCounter:
             f"End of epoch {self.current_epoch} / {self.total_epochs} \t "
             f"Time Taken: {dt:.0f} sec"
         )
-        np.savetxt(
-            self.iter_record_path, (self.current_epoch + 1, 0),
-            delimiter=",", fmt="%d",
-        )
+        self._write(self.current_epoch + 1, 0)
 
     def record_current_iter(self) -> None:
-        np.savetxt(
-            self.iter_record_path, (self.current_epoch, self.epoch_iter),
-            delimiter=",", fmt="%d",
-        )
+        self._write(self.current_epoch, self.epoch_iter)
+
+    def _write(self, epoch: int, epoch_iter: int) -> None:
+        if self.lead:
+            np.savetxt(self.iter_record_path, (epoch, epoch_iter), delimiter=",", fmt="%d")
 
     def _every(self, freq: int) -> bool:
         return (self.total_steps_so_far % freq) < self.batch_size
@@ -105,19 +113,24 @@ def to_uint8_image(t: np.ndarray) -> np.ndarray:
 
 
 class Visualizer:
-    """Loss log + PNG dumps + static HTML gallery."""
+    """Loss log + PNG dumps + static HTML gallery (rank 0's alone: on
+    another rank every method does nothing)."""
 
-    def __init__(self, ckpt_dir: str, name: str = "spade"):
+    def __init__(self, ckpt_dir: str, name: str = "spade", comm=None):
+        self.lead = _lead(comm)
         self.web_dir = os.path.join(ckpt_dir, "web")
         self.img_dir = os.path.join(self.web_dir, "images")
-        os.makedirs(self.img_dir, exist_ok=True)
         self.log_name = os.path.join(ckpt_dir, "loss_log.txt")
         self.name = name
         self._gallery: list[tuple[int, int, list[str]]] = []
-        with open(self.log_name, "a") as f:
-            f.write(f"=== Training Loss ({time.strftime('%c')}) ===\n")
+        if self.lead:
+            os.makedirs(self.img_dir, exist_ok=True)
+            with open(self.log_name, "a") as f:
+                f.write(f"=== Training Loss ({time.strftime('%c')}) ===\n")
 
     def print_current_errors(self, epoch: int, i: int, errors: dict) -> None:
+        if not self.lead:
+            return
         msg = f"(epoch: {epoch}, iters: {i}) " + " ".join(
             f"{k}: {float(v):.3f}" for k, v in sorted(errors.items())
         )
@@ -129,6 +142,8 @@ class Visualizer:
         self, visuals: dict, epoch: int, step: int
     ) -> None:
         """``visuals`` maps name -> [-1,1] float HWC array."""
+        if not self.lead:
+            return
         from PIL import Image
 
         files = []
@@ -162,7 +177,9 @@ class Visualizer:
             f.write(html)
 
 
-def save_options(ckpt_dir: str, opts) -> None:
+def save_options(ckpt_dir: str, opts, comm=None) -> None:
+    if not _lead(comm):
+        return
     os.makedirs(ckpt_dir, exist_ok=True)
     with open(os.path.join(ckpt_dir, "opt.pkl"), "wb") as f:
         pickle.dump(vars(opts) if hasattr(opts, "__dict__") else opts, f)

@@ -16,6 +16,11 @@ one process per rank, joined in a ``torch.distributed`` process group:
     prefix, after which rank 0 writes the reference-format binary
     (:func:`save_checkpoint`).
 
+SPADE's data-parallel training takes two more pieces from here:
+:func:`shard_rows`, this rank's rows of a global batch (the counterpart of
+``pix2pix.shard_batch``), and :func:`sum_over_ranks`, a SUM all-reduce that
+autograd differentiates (the batch norms' statistics across ranks).
+
 The backend is explicit: NCCL for ranks on cards of their own, gloo when
 asked (CPU ranks, or ranks that share one card, which NCCL refuses).  Only
 ``all_reduce`` and ``broadcast`` are used, the two collectives that gloo
@@ -89,6 +94,14 @@ class Comm:
             dist.broadcast(t, dist.get_global_rank(self.group, src), group=self.group)
         return t
 
+    def barrier(self) -> None:
+        """Return once every rank has called it: one one-element SUM
+        all-reduce, waited for on the host (on the rank's card with NCCL)."""
+        if self.group is not None:
+            dev = torch.device("cuda", torch.cuda.current_device()) \
+                if self.backend == "nccl" else torch.device("cpu")
+            self.all_reduce(torch.zeros(1, device=dev), "sum").item()
+
     def all_gather_rows(self, rows: torch.Tensor) -> list[torch.Tensor]:
         """Every rank's ``rows`` ([n_rank, ...], n_rank may differ between
         ranks, dtype and trailing shape may not), in rank order.  The counts
@@ -102,6 +115,47 @@ class Comm:
         buf[self.rank, : rows.shape[0]] = rows
         self.all_reduce(buf, "sum")
         return [buf[r, :n] for r, n in enumerate(counts)]
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """A SUM all-reduce inside autograd's graph.  Every rank's output is the
+    sum of every rank's input, so the gradient of a rank's input is the sum
+    over the ranks of the gradients that reach their outputs: the backward
+    is the same all-reduce of the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, comm: Comm) -> torch.Tensor:
+        ctx.comm = comm
+        return comm.all_reduce(t.detach().clone(memory_format=torch.contiguous_format), "sum")
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return ctx.comm.all_reduce(grad.clone(memory_format=torch.contiguous_format), "sum"), None
+
+
+def sum_over_ranks(t: torch.Tensor, comm: Comm | None) -> torch.Tensor:
+    """``t`` summed over the ranks of ``comm`` (collective, in the forward and
+    again in the backward, so every rank must call it in the same order),
+    differentiable; ``t`` itself without a group of more than one rank."""
+    if comm is None or comm.size == 1:
+        return t
+    return _SumOverRanks.apply(t, comm)
+
+
+def shard_rows(comm: Comm | None, *arrays):
+    """This rank's contiguous rows of each global batch in ``arrays``
+    (tensors or numpy arrays of B rows): rank r of D holds rows
+    [r * B / D, (r + 1) * B / D), the leading-axis sharding of
+    ``pix2pix.shard_batch``.  Raises where B is not a multiple of D.  All of
+    each array without a group."""
+    size, rank = (1, 0) if comm is None else (comm.size, comm.rank)
+    out = []
+    for a in arrays:
+        if a.shape[0] % size:
+            raise ValueError(f"a batch of {a.shape[0]} rows does not split over {size} ranks")
+        n = a.shape[0] // size
+        out.append(a[rank * n:(rank + 1) * n])
+    return tuple(out)
 
 
 def initialize(backend: str | None = None, init_method: str | None = None,
@@ -253,6 +307,25 @@ def spawn_cpu_processes(argv: list[str], num_processes: int, timeout: float = 60
 def python_module(module: str, *args: str) -> list[str]:
     """The argv that runs ``python -m module args...`` with this interpreter."""
     return [sys.executable, "-m", module, *args]
+
+
+def launch_ranks(module: str, argv: list[str], ranks: int, device: str | None,
+                 timeout: float) -> int:
+    """A CLI's ``--devices``: run ``python -m module argv...`` in ``ranks``
+    ranks, gloo CPU ranks when ``device`` is "cpu", else NCCL ranks, one per
+    card (raises with fewer cards than ranks).  Prints rank 0's output;
+    returns 0 (a failed rank raises)."""
+    cmd = python_module(module, *argv)
+    if device == "cpu":
+        results = spawn_cpu_processes(cmd, ranks, timeout=timeout)
+    else:
+        n = torch.cuda.device_count()
+        if n < ranks:
+            raise RuntimeError(f"--devices {ranks} needs {ranks} CUDA cards, found {n}; "
+                               f"pass --device cpu to run {ranks} gloo ranks on the CPU")
+        results = spawn_ranks(cmd, ranks, "nccl", timeout=timeout)
+    print(results[0].stdout, end="", flush=True)
+    return 0
 
 
 def main(argv=None) -> int:

@@ -59,3 +59,44 @@ def float32_gradients_held(gaps: dict, flipped: bool) -> bool:
     if flipped:
         return gaps["max"] <= 5e-2 and gaps["median"] <= 1e-2
     return gaps["max"] <= 1e-3
+
+
+def step_gaps(got: dict, want: dict, got_logs: dict, want_logs: dict) -> dict:
+    """How far one run's D step then G step lies from another's, from the
+    flax-layout trees after them (``SpadeTrainer.state_to_numpy``) and the
+    steps' logs: the losses' largest relative gap, and for each net
+    (``d``, ``g``) the :func:`gap_summary` of its gradients (Adam's mu after
+    its step: with b1 = 0 it is the gradient), its stored SN and BN state's
+    largest gap over each array's largest magnitude, and its parameters'
+    largest gap over its learning rate."""
+    if got_logs.keys() != want_logs.keys():
+        raise ValueError(f"the logs differ in their keys: {sorted(got_logs)} {sorted(want_logs)}")
+    out = {"loss_rel_err": max(abs(got_logs[k] - want_logs[k]) / abs(want_logs[k])
+                               for k in want_logs)}
+    for net in ("d", "g"):
+        grads = gap_summary(grad_gaps(*(t[f"{net}_opt"]["inner_state"]["0"]["mu"]
+                                        for t in (got, want))))
+        s_got, s_want = flat(got[f"{net}_batch_stats"]), flat(want[f"{net}_batch_stats"])
+        stored = max(float(np.abs(s_got[k] - s_want[k]).max())
+                     / max(float(np.abs(s_want[k]).max()), 1e-30) for k in s_want)
+        lr = float(want[f"{net}_opt"]["hyperparams"]["learning_rate"])
+        p_got, p_want = flat(got[f"{net}_params"]), flat(want[f"{net}_params"])
+        params = max(float(np.abs(p_got[k] - p_want[k]).max()) for k in p_want) / lr
+        out[net] = dict(grad=grads, stored_err=stored, param_err_over_lr=params)
+    return out
+
+
+def float32_steps_held(gaps: dict) -> bool:
+    """Whether two float32 runs of a D step then a G step on the same batch
+    agree, from :func:`step_gaps`: the losses within 1e-4 relative; the
+    gradients as :func:`float32_gradients_held` holds them where a rounding
+    flips a choice (a data-parallel step and one process run the
+    convolutions at other batch sizes, so their sums round differently;
+    a wrong batch norm or loss scale moves every leaf by O(1)); the stored
+    state within 1e-5 of each array's largest magnitude; each parameter
+    within 2 lr of the other run's (Adam's first step moves it by at most
+    lr, and a flipped sign of a near-zero gradient moves it the other way),
+    with 0.1% for float32 rounding."""
+    return gaps["loss_rel_err"] <= 1e-4 and all(
+        float32_gradients_held(gaps[n]["grad"], True) and gaps[n]["stored_err"] <= 1e-5
+        and gaps[n]["param_err_over_lr"] <= 2.002 for n in ("d", "g"))

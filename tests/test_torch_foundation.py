@@ -182,15 +182,16 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("entry", ["SurfelMapper", "render_view", "load_map", "ICPRefiner",
                                    "WindowedBA", "build_map", "SpadeTrainer", "spade_test",
-                                   "spade_train", "build_map_dataset", "load_map_calib",
+                                   "spade_train", "spade_train_devices", "build_map_dataset",
+                                   "load_map_calib",
                                    "local_model", "run_e2e", "ShardedMapper", "dryrun",
                                    "sharded_jobs"])
 @pytest.mark.parametrize("device", [None, "cuda"])
 def test_entry_point_defaults_to_the_card(device, entry, tmp_path):
     """The mapper (one card and sharded), the renderer, the trackers, the SPADE model, the CLIs
-    (with dataset input too), tools/run_e2e, the sharded dry run and the
-    sharded jobs run on the card unless asked for the CPU; without CUDA they
-    raise rather than fall back."""
+    (with dataset input too, and data-parallel training over --devices), tools/run_e2e, the
+    sharded dry run and the sharded jobs run on the card unless asked for the CPU; without
+    CUDA they raise rather than fall back (--devices 2 with one card raises too)."""
     from PIL import Image
 
     from surfelmapping_tpu_torch import build_map, load_map, spade_test, spade_train
@@ -218,7 +219,7 @@ def test_entry_point_defaults_to_the_card(device, entry, tmp_path):
             {"g_params": v["params"], "g_batch_stats": v["batch_stats"]}))
         (tmp_path / "labels").mkdir()
         Image.fromarray(np.zeros((32, 32, 3), np.uint8)).save(tmp_path / "labels" / "0.png")
-    if entry == "spade_train":  # one label/image pair
+    if entry.startswith("spade_train"):  # one label/image pair
         for d in ("labels", "images"):
             (tmp_path / d).mkdir()
             Image.fromarray(np.zeros((32, 32, 3), np.uint8)).save(tmp_path / d / "0.png")
@@ -249,6 +250,12 @@ def test_entry_point_defaults_to_the_card(device, entry, tmp_path):
              "--ngf", "8", "--ndf", "8", "--num-d", "1", "--n-layers-d", "2", "--no-vgg",
              "--ckpt-dir", str(tmp_path / "ckpt")]
             + ([] if device is None else ["--device", device])),
+        "spade_train_devices": lambda: spade_train.main(
+            ["--label-dir", str(tmp_path / "labels"), "--image-dir", str(tmp_path / "images"),
+             "--niter", "1", "--niter-decay", "0", "--steps-per-epoch", "1", "--crop", "32",
+             "--ngf", "8", "--ndf", "8", "--num-d", "1", "--n-layers-d", "2", "--no-vgg",
+             "--batch", "2", "--devices", "2", "--ckpt-dir", str(tmp_path / "ckpt")]
+            + ([] if device is None else ["--device", device])),
         "build_map_dataset": lambda: build_map.main(
             [seq, "--decoder", "pil", "--capacity", str(1 << 16), "--out",
              str(tmp_path / "m.bin")] + dev),
@@ -264,11 +271,14 @@ def test_entry_point_defaults_to_the_card(device, entry, tmp_path):
         "sharded_jobs": lambda: sharded_jobs.main(
             ["distributed", "--out", str(tmp_path / "job")] + dev),
     }
-    if torch.cuda.is_available():
+    if entry == "spade_train_devices" and 0 < torch.cuda.device_count() < 2:
+        with pytest.raises(RuntimeError, match="--devices 2 needs 2 CUDA cards"):
+            calls[entry]()
+    elif torch.cuda.is_available():
         got = calls[entry]()
         assert got == 0 if entry in ("load_map", "build_map", "spade_test", "spade_train",
-                                     "build_map_dataset", "load_map_calib", "run_e2e",
-                                     "dryrun", "sharded_jobs") \
+                                     "spade_train_devices", "build_map_dataset",
+                                     "load_map_calib", "run_e2e", "dryrun", "sharded_jobs") \
             else got.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

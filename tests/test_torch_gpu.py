@@ -36,8 +36,9 @@ from surfelmapping_tpu_torch.models import checkpoint
 from surfelmapping_tpu_torch.models.pix2pix import (SpadeConfig, SpadeTrainer, init_state_numpy,
                                                     init_variables)
 from surfelmapping_tpu_torch.ops import transforms
-from surfelmapping_tpu_torch.tools.compare import (flat, float32_gradients_held, gap_summary,
-                                                   grad_gaps)
+from surfelmapping_tpu_torch.tools.compare import (flat, float32_gradients_held,
+                                                   float32_steps_held, gap_summary, grad_gaps,
+                                                   step_gaps)
 from surfelmapping_tpu_torch.ops.active import table_from_map
 from surfelmapping_tpu_torch.ops.transforms import compose, invert_se3
 from surfelmapping_tpu_torch.pipeline import SurfelMapper
@@ -726,3 +727,36 @@ def test_sharded_mapper_on_the_card_matches_the_cpu(tmp_path, cuda):
     want = surfels.pack_records(single.smap)[:single.count].cpu().numpy()
     a, b = Counter(map(bytes, got["records"])), Counter(map(bytes, want))
     assert sum((a & b).values()) >= 0.995 * max(len(want), len(got["records"]))
+
+
+def test_spade_dp_two_ranks_on_the_card_match_one_process(tmp_path, cuda):
+    """tools/spade_dp_jobs ``steps`` at ngf 16, crop 64 (num_d 2, 4 layers,
+    VGG19 on), float32: one D and one G step on a global batch of 2, in two
+    gloo ranks sharing the card (one image each) and in one process, held
+    as compare.float32_steps_held holds them; both ranks' states the same
+    bytes."""
+    import json
+
+    from surfelmapping_tpu_torch.parallel.distributed import python_module, spawn_ranks
+
+    rng = np.random.default_rng(0)
+    for d in ("label", "image"):
+        (tmp_path / d).mkdir()
+        for i in range(3):
+            Image.fromarray(rng.integers(0, 256, (72, 80, 3), dtype=np.uint8)).save(
+                tmp_path / d / f"{i:06d}.png")
+    config = json.dumps(dict(ngf=16, ndf=16, crop_size=64, num_d=2, n_layers_d=4))
+    runs = {}
+    for ranks in (1, 2):
+        out = tmp_path / f"dp{ranks}"
+        spawn_ranks(python_module("surfelmapping_tpu_torch.tools.spade_dp_jobs", "steps",
+                                  "--out", str(out), "--label-dir", str(tmp_path / "label"),
+                                  "--image-dir", str(tmp_path / "image"), "--batch", "2",
+                                  "--config", config), ranks, "gloo", timeout=300)
+        raw = [(out / f"rank{r}.msgpack").read_bytes() for r in range(ranks)]
+        logs = [json.loads((out / f"rank{r}.json").read_text()) for r in range(ranks)]
+        assert all(r == raw[0] for r in raw) and all(ln["ranks_identical"] for ln in logs)
+        assert logs[0]["device"].startswith("cuda")
+        runs[ranks] = (checkpoint.unpackb(raw[0]), logs[0]["logs"])
+    gaps = step_gaps(runs[2][0], runs[1][0], runs[2][1], runs[1][1])
+    assert float32_steps_held(gaps), gaps
