@@ -1,0 +1,216 @@
+"""Frozen copy of ``surfelmapping_tpu_torch/ops/preprocess.py`` at commit
+dd68e64, trimmed to what the benchmark's reference needs.  Depth
+preprocessing: metricize, support filter, 13x13 same-class smooth, support
+filter, moving-object cull (src/SurfelMapping.cpp:133-158,253-365).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .config import CameraIntrinsics, PipelineParams
+from .transforms import device_scalar
+
+
+def _shift(img: torch.Tensor, dy: int, dx: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Shifted view of a 2D image: out[j,i] = img[j+dy, i+dx].
+
+    Returns (shifted, inbounds_mask).  Out-of-bounds reads return the
+    clamped-edge value (GL_CLAMP_TO_EDGE) and the mask records whether the
+    source pixel was in-bounds, so callers can reproduce the reference's
+    explicit boundary ``continue``s."""
+    H, W = img.shape
+    rows = torch.arange(H, device=img.device) + dy
+    cols = torch.arange(W, device=img.device) + dx
+    shifted = img.index_select(0, rows.clamp(0, H - 1)).index_select(1, cols.clamp(0, W - 1))
+    inb = ((rows >= 0) & (rows < H))[:, None] & ((cols >= 0) & (cols < W))[None, :]
+    return shifted, inb
+
+
+def metricize_depth(
+    depth_raw_mm: torch.Tensor, cam: CameraIntrinsics, params: PipelineParams
+) -> torch.Tensor:
+    """u16 millimetre depth -> metric f32, zeroing out-of-range values and the
+    left stereo margin (depth_metric.frag; uniforms src/SurfelMapping.cpp:254-266)."""
+    d = depth_raw_mm.to(torch.float32)
+    lo = params.near_clip * 1000.0
+    hi = (params.far_clip - 0.001) * 1000.0
+    valid = (d > lo) & (d < hi)
+    metric = torch.where(valid, d / device_scalar(1000.0, d.device), 0.0)
+    cols = torch.arange(cam.width, dtype=torch.float32, device=d.device) + 0.5
+    in_border = cols < params.stereo_border
+    return torch.where(in_border[None, :], 0.0, metric)
+
+
+def support_filter(
+    depth: torch.Tensor,
+    semantic: torch.Tensor,
+    params: PipelineParams,
+    diff_thresh: float,
+) -> torch.Tensor:
+    """Keep a depth pixel only if >= 7 of its 8 neighbours are within
+    ``diff_thresh`` and share its semantic class; zero sky/person/rider and
+    out-of-range depths (depth_filter.frag)."""
+    p = params
+    removed = (
+        (depth <= p.near_clip)
+        | (depth >= p.filter_cap_depth)
+        | (semantic == p.sky_class)
+        | (semantic == p.person_class)
+        | (semantic == p.rider_class)
+    )
+    support = torch.zeros(depth.shape, dtype=torch.int32, device=depth.device)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy == 0 and dx == 0:
+                continue
+            dk, inb = _shift(depth, dy, dx)
+            ck, _ = _shift(semantic, dy, dx)
+            ok = inb & (torch.abs(dk - depth) < diff_thresh) & (ck == semantic)
+            support = support + ok.to(torch.int32)
+    keep = (~removed) & (support >= p.filter_support_min)
+    return torch.where(keep, depth, 0.0)
+
+
+def smooth_weight(dy: int, dx: int, params: PipelineParams) -> float:
+    """Tap weight exp(-(dy^2+dx^2) * sigPix), taken in double precision and
+    used as float32 (the sigma quirk: PipelineParams.smooth_sig_pix)."""
+    return math.exp(-((dy * dy + dx * dx) * params.smooth_sig_pix))
+
+
+def smooth_depth(
+    depth: torch.Tensor,
+    semantic: torch.Tensor,
+    cam: CameraIntrinsics,
+    params: PipelineParams,
+) -> torch.Tensor:
+    """13x13 Gaussian smoothing restricted to same-class, in-range neighbours
+    right of the stereo border; sky and out-of-range centers are zeroed
+    (depth_smooth.frag).  Taps sum dy outer, dx inner.
+
+    The port's plain version takes one tensor op per tap and term; here each
+    tap's term is computed for all taps at once, and the sums still add the
+    terms one tap at a time in the same order, so every rounding is the
+    same."""
+    p = params
+    H, W = depth.shape
+    R = p.smooth_radius
+    dev = depth.device
+    removed = (
+        (depth <= p.near_clip)
+        | (depth >= p.filter_cap_depth)
+        | (semantic == p.sky_class)
+    )
+    cols = torch.arange(W, dtype=torch.float32, device=dev) + 0.5
+    # neighbour texX < stereoBorder/cols is skipped (depth_smooth.frag:51)
+    col_ok = (cols >= p.stereo_border)[None, :].expand(depth.shape).contiguous()
+    rows = torch.arange(-R, H + R, device=dev)
+    cidx = torch.arange(-R, W + R, device=dev)
+    rows_in = (rows >= 0) & (rows < H)
+    cols_in = (cidx >= 0) & (cidx < W)
+
+    def padded(img):
+        # edge-clamped texels (GL_CLAMP_TO_EDGE), as _shift reads them
+        return img.index_select(0, rows.clamp(0, H - 1)).index_select(1, cidx.clamp(0, W - 1))
+
+    pd, ps, pc = padded(depth), padded(semantic), padded(col_ok)
+    taps = [(dy, dx) for dy in range(-R, R + 1) for dx in range(-R, R + 1)]
+
+    def stack(img):
+        return torch.stack([img[R + dy:R + dy + H, R + dx:R + dx + W] for dy, dx in taps])
+
+    dk = stack(pd)
+    inb = torch.stack([rows_in[R + dy:R + dy + H, None] & cols_in[None, R + dx:R + dx + W]
+                       for dy, dx in taps])
+    ok = inb & stack(pc) & (dk > p.near_clip) & (dk < p.filter_cap_depth) & (stack(ps) == semantic)
+    w = torch.tensor([smooth_weight(dy, dx, p) for dy, dx in taps], dtype=torch.float32,
+                     device=dev)[:, None, None]
+    okf = ok.to(torch.float32)
+    num_terms = okf * dk * w
+    den_terms = okf * w
+    cnt = ok.to(torch.int32).sum(dim=0, dtype=torch.int32)
+    num = torch.zeros(depth.shape, dtype=torch.float32, device=dev)
+    den = torch.zeros_like(num)
+    for k in range(len(taps)):
+        num = num + num_terms[k]
+        den = den + den_terms[k]
+    smoothed = torch.where(cnt > 0, num / torch.clamp(den, min=1e-30), 0.0)
+    return torch.where(removed, 0.0, smoothed)
+
+
+def stencil_chain_plain(
+    metric: torch.Tensor,
+    semantic: torch.Tensor,
+    cam: CameraIntrinsics,
+    params: PipelineParams,
+) -> torch.Tensor:
+    """support(t1) -> smooth -> support(t2): the plain version of the
+    preprocess stencil kernel."""
+    filtered = support_filter(metric, semantic, params, params.filter_diff_thresh_1)
+    smoothed = smooth_depth(filtered, semantic, cam, params)
+    return support_filter(smoothed, semantic, params, params.filter_diff_thresh_2)
+
+
+def remove_movings(
+    depth: torch.Tensor,
+    semantic: torch.Tensor,
+    depth_last: torch.Tensor,
+    T_curr_to_last: torch.Tensor,
+    cam: CameraIntrinsics,
+    params: PipelineParams,
+) -> torch.Tensor:
+    """Cull pixels of movable classes whose reprojection into the previous
+    frame disagrees with the previous depth by > move_thresh
+    (depth_movings.frag; uniforms src/SurfelMapping.cpp:336-365)."""
+    p = params
+    H, W = depth.shape
+    x = (torch.arange(W, dtype=torch.float32, device=depth.device) + 0.5)[None, :].expand(H, W)
+    y = (torch.arange(H, dtype=torch.float32, device=depth.device) + 0.5)[:, None].expand(H, W)
+
+    movable = (semantic >= p.movable_class_lo) & (semantic <= p.movable_class_hi)
+    border_or_invalid = (x < p.stereo_border) | (depth <= p.near_clip)
+
+    # reproject into the last frame
+    X = (x - cam.cx) * depth / device_scalar(cam.fx, depth.device)
+    Y = (y - cam.cy) * depth / device_scalar(cam.fy, depth.device)
+    R = T_curr_to_last[:3, :3]
+    t = T_curr_to_last[:3, 3]
+    Xl = R[0, 0] * X + R[0, 1] * Y + R[0, 2] * depth + t[0]
+    Yl = R[1, 0] * X + R[1, 1] * Y + R[1, 2] * depth + t[1]
+    Zl = R[2, 0] * X + R[2, 1] * Y + R[2, 2] * depth + t[2]
+    safe_z = torch.where(torch.abs(Zl) < 1e-12, 1e-12, Zl)
+    ul = cam.fx * Xl / safe_z + cam.cx
+    vl = cam.fy * Yl / safe_z + cam.cy
+
+    out_of_last = (
+        (Zl <= p.near_clip)
+        | (Zl >= p.filter_cap_depth)
+        | (ul < p.stereo_border)
+        | (ul > W)
+        | (vl < 0)
+        | (vl > H)
+    )
+
+    # nearest-texel lookup of last depth at (ul, vl)
+    ui = torch.clamp(torch.floor(ul).to(torch.int64), 0, W - 1)
+    vi = torch.clamp(torch.floor(vl).to(torch.int64), 0, H - 1)
+    d_last = depth_last[vi, ui]
+
+    moving = torch.abs(Zl - d_last) > p.move_thresh
+
+    cull = movable & (~border_or_invalid) & (~out_of_last) & moving
+    return torch.where(cull, 0.0, depth)
+
+
+def preprocess_frame(
+    depth_raw_mm: torch.Tensor,
+    semantic: torch.Tensor,
+    cam: CameraIntrinsics,
+    params: PipelineParams,
+) -> torch.Tensor:
+    """Stages 1-4: the DEPTH_FILTERED image after the second support pass
+    (the next frame's LAST image and, after :func:`remove_movings`, the
+    fusion depth)."""
+    return stencil_chain_plain(metricize_depth(depth_raw_mm, cam, params), semantic, cam, params)
