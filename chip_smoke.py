@@ -73,7 +73,7 @@ Phases, each printed as one JSON line:
            enhanced frames/s, the generator's card time per image beside its
            float32 bound (FLOPs from the layer shapes), launches, memory,
            the card's idle share and top kernels over 4 frames of the chain,
-           and the host ms of each step's profiler range
+           and the host ms of the chain's profiler ranges
   small_spade_train  one D step and one G step (ngf 16, crop 64, batch 2,
            num_d 2, n_layers_d 4, VGG on; without and with the VAE) on the
            card vs the CPU from the same variables and batch: losses within
@@ -1189,7 +1189,7 @@ def phase_spade(dev, mapper, views, counters, smi: str) -> dict:
                           for e in device_events(prof)), key=lambda k: -k[1])
         busy_ms = sum(k[1] for k in kernels)
         host_ms = {e.key: e.cpu_time_total / 1e3 / 4 for e in prof.key_averages()
-                   if e.key.startswith(("chain.", "spade."))
+                   if e.key.startswith("chain.")
                    and e.device_type == torch.autograd.DeviceType.CPU}
         res[name] = dict(
             output=list(model.last.shape[1:3]), label=list(label.shape[:2]), views=len(views),

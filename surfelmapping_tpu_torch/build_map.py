@@ -52,6 +52,8 @@ import time as _time
 import numpy as np
 import torch
 
+from .utils import tracing
+
 
 class RandomWalkNoise:
     """Random-walk pose noise of ``sigma`` m per frame from
@@ -295,7 +297,8 @@ def main(argv=None) -> int:
                     help="write the viewer's figure into DIR instead of a window")
     ap.add_argument("--gui-render-every", type=int, default=10,
                     help="render the model panels (and snapshot) every N frames")
-    ap.add_argument("--profile", action="store_true", help="print stage timings")
+    ap.add_argument("--profile", action="store_true",
+                    help="record the mapper's spans and print their summary (tracing.summary)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--devices", type=int, default=1, metavar="D",
@@ -319,9 +322,11 @@ def main(argv=None) -> int:
         comm = initialize(timeout_s=args.timeout)
         if comm.size != args.devices:
             raise RuntimeError(f"--devices {args.devices} in a job of {comm.size} ranks")
+    tracing.enable(args.profile)
     try:
         return run(args, comm)
     finally:
+        tracing.enable(False)
         if comm is not None:
             shutdown()
 
@@ -433,8 +438,8 @@ def run(args, comm) -> int:
     ranks = "" if comm is None else f", {comm.size} ranks"
     say(f"{out} saved: {mapper.count} surfels from {n} frames "
         f"({n / dt:.2f} fps, {mapper.device}{ranks})")
-    if args.profile and isinstance(mapper, SurfelMapper):
-        say(mapper.stopwatch.report())
+    if args.profile:
+        say(tracing.summary())
     return 0
 
 

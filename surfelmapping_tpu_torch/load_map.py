@@ -7,6 +7,7 @@ simulator data generation:
     python -m surfelmapping_tpu_torch.load_map MAP.bin --calib DIR|--synthetic
         [--synthetic-cam kitti|small] [--mode random|s|paired|overview]
         [--num N] [--out DIR] [--seed S] [--footprint F] [--device cuda|cpu]
+        [--profile]
 
 Modes (load_map.cpp:114-287):
   paired:   render at the poses of the mapped id range;
@@ -20,7 +21,9 @@ The intrinsics and the poses of the mapped id range come from a KITTI-layout
 dataset directory (``--calib DIR``: its calibration and ``pose.txt``, no
 image is read) or from the procedural scene (``--synthetic``, also the
 default without ``--calib``).  Renders on the CUDA card unless
-``--device cpu`` is given.
+``--device cpu`` is given.  ``--profile`` records the renderer's spans and
+prints their summary (``utils/tracing.summary``: wall, self and wait ms per
+span, and the cull-budget retries).
 """
 
 from __future__ import annotations
@@ -49,10 +52,13 @@ def main(argv=None) -> int:
     ap.add_argument("--footprint", type=int, default=5)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--profile", action="store_true",
+                    help="record the renderer's spans and print their summary")
     args = ap.parse_args(argv)
 
     from .pipeline import resolve_device
     from .surfels import load_map as load_map_file
+    from .utils import tracing
     from .views import acquire_images, overview_views, random_novel_views, s_shaped_views
 
     dev = resolve_device(args.device)
@@ -91,9 +97,15 @@ def main(argv=None) -> int:
         first_id = start_id
 
     print(f"rendering {len(views)} views -> {out_dir} ({dev})")
-    acquire_images(smap, views, out_dir, cam, start_id=first_id,
-                   footprint=args.footprint, device=dev)
+    tracing.enable(args.profile)
+    try:
+        acquire_images(smap, views, out_dir, cam, start_id=first_id,
+                       footprint=args.footprint, device=dev)
+    finally:
+        tracing.enable(False)
     print("done")
+    if args.profile:
+        print(tracing.summary())
     return 0
 
 

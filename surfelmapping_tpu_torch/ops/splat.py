@@ -45,6 +45,7 @@ import torch.nn.functional as F
 
 from ..config import CameraIntrinsics
 from ..surfels import COLUMNS, SurfelMap
+from ..utils import tracing
 from .active import _TABLE_COLS, gather_active, valid_prefix
 from .colors import decode_color
 from .index_map import INT32_MAX, _depth_key
@@ -392,11 +393,15 @@ def splat_render_fast(
     Returns the same dict as :func:`splat_render` (large_overflow = splats
     cropped at the last class)."""
     num_pix = cam.height * cam.width
-    key, cflat, classes, large_overflow = fast_candidates(
-        smap, view, cam, max_depth, footprint, classes)
-    packed = zbuffer_argmin_packed(key, cflat, len(classes) * num_pix, n_valid)
-    keys, ids = _dilate(packed, classes, cam)
-    out = _decode(smap, keys, ids, cam)
+    with tracing.span("render.centres"):
+        key, cflat, classes, large_overflow = fast_candidates(
+            smap, view, cam, max_depth, footprint, classes)
+    with tracing.span("render.k1"):
+        packed = zbuffer_argmin_packed(key, cflat, len(classes) * num_pix, n_valid)
+    with tracing.span("render.dilate"):
+        keys, ids = _dilate(packed, classes, cam)
+    with tracing.span("render.decode"):
+        out = _decode(smap, keys, ids, cam)
     out["large_overflow"] = large_overflow
     return out
 
@@ -440,7 +445,10 @@ def render_view(
     map elsewhere is copied there.  The view reads the device once (the
     active block count, after the render is enqueued) and re-renders only if
     the budget truncated it.  Adds ``n_active_blocks`` (0-d int32) and
-    ``budget_retries`` (int) to the output."""
+    ``budget_retries`` (int) to the output.
+
+    The view is the root span ``render.view``; the read is its ``wait``, and
+    each re-render counts one ``render.budget_retries``."""
     from ..pipeline import resolve_device
 
     if method not in ("fast", "exact"):
@@ -457,20 +465,22 @@ def render_view(
             budget *= 2
         budget = G if budget >= G // 2 else budget
     retries = 0
-    while True:
-        out, n_active = _cull_and_render(
-            smap, view, cam, budget, block_size, max_depth, footprint,
-            small_footprint, method, classes,
-        )
-        n = int(n_active)
-        if n <= budget or budget >= G:
-            out["n_active_blocks"] = n_active
-            out["budget_retries"] = retries
-            return out
-        retries += 1
-        while budget < n:
-            budget *= 2
-        budget = min(budget, G)
+    with tracing.span("render.view"):
+        while True:
+            out, n_active = _cull_and_render(
+                smap, view, cam, budget, block_size, max_depth, footprint,
+                small_footprint, method, classes,
+            )
+            n = tracing.read_back(n_active)
+            if n <= budget or budget >= G:
+                out["n_active_blocks"] = n_active
+                out["budget_retries"] = retries
+                return out
+            retries += 1
+            tracing.count("render.budget_retries")
+            while budget < n:
+                budget *= 2
+            budget = min(budget, G)
 
 
 def _cull_and_render(
@@ -485,9 +495,10 @@ def _cull_and_render(
     method: str,
     classes: tuple[int, ...],
 ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
-    culled, gids, n_active = cull_for_render(
-        smap, view, cam, num_blocks, block_size, max_depth, margin=footprint + 2,
-    )
+    with tracing.span("render.cull"):
+        culled, gids, n_active = cull_for_render(
+            smap, view, cam, num_blocks, block_size, max_depth, margin=footprint + 2,
+        )
     if method == "fast":
         # the culled table holds valid blocks first: stream only that prefix
         # through the z-buffer kernel (a pow2 budget can pad the tail)

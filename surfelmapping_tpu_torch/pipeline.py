@@ -43,7 +43,7 @@ from .ops.fusion import compact, conflict_pass, initialize_map
 from .ops.preprocess import metricize_depth, preprocess_frame, remove_movings
 from .ops.transforms import compose, full_precision_matmul, invert_se3
 from .surfels import SurfelMap, empty_map, load_map, resize_map, save_map
-from .utils.stopwatch import Stopwatch
+from .utils import tracing
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -134,24 +134,33 @@ def _fusion_step(smap: SurfelMap, depth_raw, rgb, semantic, pose, last_depth,
                  params: PipelineParams, active_blocks: int, block_size: int):
     """The incremental fusion step (tick > 0) on the active-block engine, in
     the reference's stage order (src/SurfelMapping.cpp:171-242).  The map
-    columns are updated in place (the JAX step donated its map)."""
-    filtered = preprocess_frame(depth_raw, semantic, cam, params)
+    columns are updated in place (the JAX step donated its map).  Each stage
+    is a span (``fuse.<stage>``): the host's time to enqueue it."""
+    with tracing.span("fuse.preprocess_frame"):
+        filtered = preprocess_frame(depth_raw, semantic, cam, params)
     T_c2l = compose(invert_se3(last_pose), pose)
-    depth_m = remove_movings(filtered, semantic, last_depth, T_c2l, cam, params)
+    with tracing.span("fuse.remove_movings"):
+        depth_m = remove_movings(filtered, semantic, last_depth, T_c2l, cam, params)
     T_inv = invert_se3(pose)
 
-    blk, n_active = plan_active_blocks(smap, T_inv, cam, params, active_blocks, block_size)
-    at = gather_active(smap, blk, block_size)
-    at, removed = conflict_active(
-        at, depth_m, semantic, T_inv, cam, params,
-        min_depth=params.near_clip, max_depth=params.far_clip,
-        fuse_thresh=params.fuse_thresh_factor, is_clean=False,
-    )
-    idx_img = index_active(at, T_inv, time, cam, params,
-                           n_valid=valid_prefix(n_active, blk.shape[0], block_size))
-    assoc = associate_active(depth_m, rgb, semantic, idx_img, at, pose, T_inv,
-                             time, cam, params)
-    smap, dropped = fuse_append_map(smap, at, assoc)
+    with tracing.span("fuse.plan_active_blocks"):
+        blk, n_active = plan_active_blocks(smap, T_inv, cam, params, active_blocks, block_size)
+    with tracing.span("fuse.gather_active"):
+        at = gather_active(smap, blk, block_size)
+    with tracing.span("fuse.conflict_active"):
+        at, removed = conflict_active(
+            at, depth_m, semantic, T_inv, cam, params,
+            min_depth=params.near_clip, max_depth=params.far_clip,
+            fuse_thresh=params.fuse_thresh_factor, is_clean=False,
+        )
+    with tracing.span("fuse.index_active"):
+        idx_img = index_active(at, T_inv, time, cam, params,
+                               n_valid=valid_prefix(n_active, blk.shape[0], block_size))
+    with tracing.span("fuse.associate_active"):
+        assoc = associate_active(depth_m, rgb, semantic, idx_img, at, pose, T_inv,
+                                 time, cam, params)
+    with tracing.span("fuse.fuse_append_map"):
+        smap, dropped = fuse_append_map(smap, at, assoc)
 
     stats = {
         "removed": removed,
@@ -216,7 +225,6 @@ class SurfelMapper:
                 "active-block engine needs even image dims (checkerboard "
                 f"slicing); got {cam.width}x{cam.height} — pad the frames"
             )
-        self.stopwatch = Stopwatch()
         # requested active-block budget; effective value is min(this, #blocks)
         self.active_blocks = self.map_config.active_blocks
         # the buffer pre-grows by sync_every * H*W/2 worst-case slots, and the
@@ -309,8 +317,9 @@ class SurfelMapper:
         while b2 < bucket:
             b2 *= 2
         bucket = min(b2, self._smap.capacity)
-        self._smap = compact(self._smap, prefix=bucket)
-        self._cached_tail = int(self._smap.count)
+        with tracing.span("fuse.compact"):
+            self._smap = compact(self._smap, prefix=bucket)
+            self._cached_tail = tracing.read_back(self._smap.count)
         if self._cached_tail != self._cached_count:
             raise RuntimeError("compaction changed the live count — tombstone "
                                "accounting bug")
@@ -321,7 +330,7 @@ class SurfelMapper:
         k = len(self._pending_active)
         vals = self._pending_active + self._pending_dropped + [
             self._smap.count, _live_count(self._smap)]
-        host = torch.stack(vals).tolist()  # all int32
+        host = tracing.read_back(torch.stack(vals))  # all int32
         return host[:k], host[k:-2], host[-2], host[-1]
 
     def _repair_overflow(self) -> tuple[list[int], list[int], int, int]:
@@ -348,16 +357,17 @@ class SurfelMapper:
                 self.events["budget_growths"] += 1
             # the replay updates its map in place: start from a copy so a
             # further repair round can replay again
-            smap = self._chk.clone()
-            filtered = None
-            for i, (inp, _) in enumerate(self._window):
-                eff = self._effective_active_blocks
-                smap, filtered, dropped_i, stats_dev = _fusion_step(
-                    smap, *inp, self.cam, self.params, eff, cfg.block_size,
-                )
-                self._pending_dropped[i] = dropped_i
-                self._pending_active[i] = stats_dev["active_blocks"]
-                self._window[i] = (inp, eff)
+            with tracing.span("fuse.replay"):
+                smap = self._chk.clone()
+                filtered = None
+                for i, (inp, _) in enumerate(self._window):
+                    eff = self._effective_active_blocks
+                    smap, filtered, dropped_i, stats_dev = _fusion_step(
+                        smap, *inp, self.cam, self.params, eff, cfg.block_size,
+                    )
+                    self._pending_dropped[i] = dropped_i
+                    self._pending_active[i] = stats_dev["active_blocks"]
+                    self._window[i] = (inp, eff)
             self._smap = smap
             self.last_depth = filtered
         raise RuntimeError("active-budget repair did not converge (bug)")
@@ -366,65 +376,67 @@ class SurfelMapper:
         """Periodic host sync: verify/repair the frame window, check the
         overflow flags, cache counts, apply the deferred-compaction policy
         and the active-budget tuning."""
-        acts, dropped, tail, live = self._repair_overflow()
-        if sum(dropped):
-            raise RuntimeError(
-                f"surfel buffer overflow dropped {sum(dropped)} surfels — "
-                "pre-growth margin violated (bug)"
-            )
-        cfg = self.map_config
-        if acts and not cfg.freeze_active_budget:
-            # right-size the budget to the measured working set, with wide
-            # hysteresis (grow at 0.75 occupancy, shrink at 3x slack);
-            # undershoot is repaired exactly by _repair_overflow
-            peak = max(acts)
-            eff = self._effective_active_blocks
-            if peak > cfg.active_watermark * eff:
-                target = max(eff, 64)
-                while peak > cfg.active_watermark * target:
-                    target *= 2
-                self.active_blocks = target
-            elif peak * 3 < eff and eff > 64:
-                self.active_blocks = max(64, eff // 2)
-        self._pending_dropped = []
-        self._pending_active = []
-        self._chk = None
-        self._window = []
-        self._cached_tail = tail
-        self._cached_count = live
-        self._since_sync = 0
-        dead = self._cached_tail - self._cached_count
-        # reclaim tombstones only under ALLOCATION PRESSURE (the cursor
-        # nearing the growth watermark): dead slots never re-activate blocks,
-        # so a pre-sized capacity absorbs them for free, while an eager
-        # compaction stalls the frame loop
-        if (
-            dead > cfg.compact_dead_frac * self._smap.capacity
-            and self._cached_tail > 0.75 * self._smap.capacity
-        ):
-            self._compact_now()
+        with tracing.span("fuse.sync"):
+            acts, dropped, tail, live = self._repair_overflow()
+            if sum(dropped):
+                raise RuntimeError(
+                    f"surfel buffer overflow dropped {sum(dropped)} surfels — "
+                    "pre-growth margin violated (bug)"
+                )
+            cfg = self.map_config
+            if acts and not cfg.freeze_active_budget:
+                # right-size the budget to the measured working set, with wide
+                # hysteresis (grow at 0.75 occupancy, shrink at 3x slack);
+                # undershoot is repaired exactly by _repair_overflow
+                peak = max(acts)
+                eff = self._effective_active_blocks
+                if peak > cfg.active_watermark * eff:
+                    target = max(eff, 64)
+                    while peak > cfg.active_watermark * target:
+                        target *= 2
+                    self.active_blocks = target
+                elif peak * 3 < eff and eff > 64:
+                    self.active_blocks = max(64, eff // 2)
+            self._pending_dropped = []
+            self._pending_active = []
+            self._chk = None
+            self._window = []
+            self._cached_tail = tail
+            self._cached_count = live
+            self._since_sync = 0
+            dead = self._cached_tail - self._cached_count
+            # reclaim tombstones only under ALLOCATION PRESSURE (the cursor
+            # nearing the growth watermark): dead slots never re-activate blocks,
+            # so a pre-sized capacity absorbs them for free, while an eager
+            # compaction stalls the frame loop
+            if (
+                dead > cfg.compact_dead_frac * self._smap.capacity
+                and self._cached_tail > 0.75 * self._smap.capacity
+            ):
+                self._compact_now()
 
     def _maybe_grow_cached(self, need: int) -> None:
         cfg = self.map_config
         cap = self._smap.capacity
         if need <= cap * cfg.watermark:
             return
-        # reclaim tombstones before buying memory
-        self._refresh_counts()
-        if self._cached_tail > self._cached_count:
-            dead = self._cached_tail - self._cached_count
-            self._compact_now()
-            need = max(self._cached_tail, need - dead)
-        new_cap = cap
-        while need > new_cap * cfg.watermark:
-            new_cap = int(new_cap * cfg.growth_factor)
-        new_cap = cfg.rounded_capacity(new_cap)
-        if new_cap > cap:
-            self.events["capacity_growths"] += 1
-            self._smap = resize_map(self._smap, new_cap)
+        with tracing.span("fuse.grow"):
+            # reclaim tombstones before buying memory
+            self._refresh_counts()
+            if self._cached_tail > self._cached_count:
+                dead = self._cached_tail - self._cached_count
+                self._compact_now()
+                need = max(self._cached_tail, need - dead)
+            new_cap = cap
+            while need > new_cap * cfg.watermark:
+                new_cap = int(new_cap * cfg.growth_factor)
+            new_cap = cfg.rounded_capacity(new_cap)
+            if new_cap > cap:
+                self.events["capacity_growths"] += 1
+                self._smap = resize_map(self._smap, new_cap)
 
     def _maybe_grow(self, needed_extra: int = 0) -> None:
-        self._maybe_grow_cached(int(self._smap.count) + needed_extra)
+        self._maybe_grow_cached(tracing.read_back(self._smap.count) + needed_extra)
 
     def active_table(self, pose):
         """Gather the in-frustum active table for an external consumer (ICP /
@@ -439,7 +451,7 @@ class SurfelMapper:
                 self._smap, pose, self.cam, self.params,
                 eff, self.map_config.block_size,
             )
-            n = int(n_active)
+            n = tracing.read_back(n_active)
             if n <= eff or eff >= self._smap.capacity // self.map_config.block_size:
                 return at
             while self.active_blocks < n:
@@ -468,16 +480,21 @@ class SurfelMapper:
     def process_frame(self, rgb, depth, semantic, pose) -> dict[str, Any]:
         """Ingest one frame (reference processFrame,
         src/SurfelMapping.cpp:115-251).  ``pose`` is the camera-to-world 4x4.
-        Returns per-frame stats (0-d device tensors; reading one syncs)."""
-        sw = self.stopwatch
+        Returns per-frame stats (0-d device tensors; reading one syncs).
+        The frame is the root span ``fuse.frame`` with the tick as its id."""
+        with tracing.span("fuse.frame", self.tick):
+            return self._process_frame(rgb, depth, semantic, pose)
+
+    def _process_frame(self, rgb, depth, semantic, pose) -> dict[str, Any]:
         # keep a host pose for the history without reading a staged one back
         pose_host = pose if isinstance(pose, np.ndarray) else None
-        rgb, depth, semantic, pose = stage_frame(self.device, rgb, depth, semantic, pose)
+        with tracing.span("fuse.upload"):
+            rgb, depth, semantic, pose = stage_frame(self.device, rgb, depth, semantic, pose)
         if pose_host is None:
             pose_host = pose
 
         if not self.ref_frame_set:
-            with sw.time("Preprocess"):
+            with tracing.span("fuse.preprocess_frame"):
                 self.last_depth = _preprocess_only(depth, semantic, self.cam, self.params)
             self.last_pose = pose
             self.ref_frame_set = True
@@ -490,14 +507,14 @@ class SurfelMapper:
         if self.tick == 0:
             # only reachable after reset(); the step appends in place, so a
             # retry after growth starts again from the untouched map
-            with sw.time("Initialize"):
+            with tracing.span("fuse.init"):
                 while True:
                     smap, filtered, dropped = _init_step(
                         self._smap.clone(), depth, rgb, semantic, pose,
                         self.last_depth, self.last_pose, time,
                         self.cam, self.params,
                     )
-                    n_dropped = int(dropped)
+                    n_dropped = tracing.read_back(dropped)
                     if n_dropped == 0:
                         break
                     self._maybe_grow(n_dropped)
@@ -515,13 +532,12 @@ class SurfelMapper:
                 # the step updates the map in place: keep the pre-window
                 # state by VALUE so overflow repair can replay
                 self._chk = self._smap.clone()
-            with sw.time("Run"):
-                smap, filtered, dropped, stats_dev = _fusion_step(
-                    self._smap, depth, rgb, semantic, pose,
-                    prev_depth, prev_pose, time,
-                    self.cam, self.params,
-                    eff, self.map_config.block_size,
-                )
+            smap, filtered, dropped, stats_dev = _fusion_step(
+                self._smap, depth, rgb, semantic, pose,
+                prev_depth, prev_pose, time,
+                self.cam, self.params,
+                eff, self.map_config.block_size,
+            )
             self._smap = smap
             n_act = stats_dev.pop("active_blocks")
             self._window.append(
@@ -545,13 +561,13 @@ class SurfelMapper:
         """Backward ghost-removal replay (reference cleanPoints)."""
         self._refresh_counts()
         _, depth, semantic, pose = stage_frame(self.device, None, depth, semantic, pose)
-        with self.stopwatch.time("Clean Points"):
+        with tracing.span("fuse.clean"):
             self._smap = _clean_step(self._smap, depth, semantic, pose,
                                      self.cam, self.params)
-        # _clean_step compacts, so tail == live afterwards
+            # _clean_step compacts, so tail == live afterwards
+            self._cached_tail = self._cached_count = tracing.read_back(self._smap.count)
         self._pending_dropped = []
         self._pending_active = []
-        self._cached_tail = self._cached_count = int(self._smap.count)
         self._since_sync = 0
 
     # -- persistence --------------------------------------------------------

@@ -131,7 +131,8 @@ def report(prof, w: int, wall_ms: float, prof_wall_ms: float, unit: str, **extra
             else:  # the host range, and the kernels launched inside it
                 st["host_ms"] = e.cpu_time_total / 1e3 / w
                 st["kernel_ms"] = e.device_time_total / 1e3 / w
-        elif e.device_type == cuda_type:
+        elif e.device_type == cuda_type and not getattr(e, "is_user_annotation", False):
+            # the device side of the host's ranges (the port's own spans) is no kernel
             kernels.append((e.key, e.self_device_time_total / 1e3 / w, e.count / w))
     kernels.sort(key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)

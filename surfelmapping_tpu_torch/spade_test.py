@@ -21,7 +21,6 @@ import sys
 import numpy as np
 import torch
 from PIL import Image
-from torch.profiler import record_function
 
 from .models.data import _frame_id, postprocess_composite
 from .ops.transforms import device_scalar
@@ -36,11 +35,9 @@ def unit_batch(image_u8: np.ndarray, device: torch.device) -> torch.Tensor:
 def fake_to_u8(fake: torch.Tensor, height: int, width: int) -> np.ndarray:
     """One generated HWC image in [-1, 1] as u8 (clipped, then truncated),
     resized bicubic to ``height`` x ``width`` when its size differs."""
-    with record_function("spade.to_u8"):
-        out = torch.clamp((fake + 1.0) * 127.5, 0, 255).to(torch.uint8).contiguous().cpu().numpy()
+    out = torch.clamp((fake + 1.0) * 127.5, 0, 255).to(torch.uint8).contiguous().cpu().numpy()
     if out.shape[:2] != (height, width):
-        with record_function("spade.bicubic"):
-            out = np.asarray(Image.fromarray(out).resize((width, height), Image.BICUBIC))
+        out = np.asarray(Image.fromarray(out).resize((width, height), Image.BICUBIC))
     return out
 
 
@@ -49,16 +46,13 @@ def enhance_frame(model, label_u8: np.ndarray, semantic_u8: np.ndarray | None = 
     """One simulator frame: the generator on a rendered u8 label (with a
     VAE, styled by ``style_u8`` or from z = 0), its output as u8 at the
     label's size, and GAN pixels where the render's semantic is 0 (all of
-    them without a semantic).  ``model`` is a ``models.pix2pix.SpadeTrainer``.
-    Each step is a profiler range (``spade.*``)."""
-    with record_function("spade.generator"):
-        style = None if style_u8 is None else unit_batch(style_u8, model.device)
-        fake = model.infer(unit_batch(label_u8, model.device), style)[0]
+    them without a semantic).  ``model`` is a ``models.pix2pix.SpadeTrainer``."""
+    style = None if style_u8 is None else unit_batch(style_u8, model.device)
+    fake = model.infer(unit_batch(label_u8, model.device), style)[0]
     fake_u8 = fake_to_u8(fake, *label_u8.shape[:2])
     if semantic_u8 is None:
         return fake_u8
-    with record_function("spade.composite"):
-        return postprocess_composite(label_u8, fake_u8, semantic_u8)
+    return postprocess_composite(label_u8, fake_u8, semantic_u8)
 
 
 def _read(path: str, mode: str) -> np.ndarray:

@@ -20,6 +20,7 @@ import torch
 
 from .config import CameraIntrinsics
 from .surfels import SurfelMap
+from .utils import tracing
 
 
 def _yaw_about_minus_y(theta: float) -> np.ndarray:
@@ -119,9 +120,11 @@ def overview_views(
 
 def render_u8(out: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """A render's image and semantic PNGs as u8 tensors: the RGB rounded
-    and clipped to [0, 255], the semantic as class+1 with 0 = hole."""
-    rgb = torch.clamp(torch.round(out["rgb"] * 255.0), 0, 255).to(torch.uint8)
-    return rgb, out["semantic"].to(torch.uint8)
+    and clipped to [0, 255], the semantic as class+1 with 0 = hole (the
+    span ``render.to_u8``)."""
+    with tracing.span("render.to_u8"):
+        rgb = torch.clamp(torch.round(out["rgb"] * 255.0), 0, 255).to(torch.uint8)
+        return rgb, out["semantic"].to(torch.uint8)
 
 
 def acquire_images(

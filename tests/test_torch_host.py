@@ -162,7 +162,7 @@ def test_checker_matches_jax(rng):
 
 def test_tracing_writes_a_trace_on_the_cpu(tmp_path):
     with tracing.trace_to(str(tmp_path / "trace")):
-        with tracing.annotate("surfel_probe_range"):
+        with tracing.span("surfel_probe_range"):
             torch.ones(64).cumsum(0)
     (name,) = os.listdir(tmp_path / "trace")
     assert name.startswith("trace_") and name.endswith(".json")
