@@ -34,6 +34,11 @@ Phases, each printed as one JSON line:
            through SurfelMapper.process_frame at bench.py's operating point,
            frames/s per window, kernel launch counts, map checks
   holds    the kernels vs their plain versions on the main path's own state
+  associate  the association kernel vs its plain version, every column bit
+           for bit: tools/assoc_cases.py's cases (tombstones, padding, empty
+           and stray index pixels, sky and moving classes, index_factor 1
+           and 2, 1226x370) and the main path's own last frame; timed there
+           warm and cold beside its bytes bound and the plain version
   outres   the probe kernels P1 (pallas_zbuf) and P2 (outres) vs their plain
            version at the TPU probes' shapes (P = 453,620 and 1,814,480,
            A = 1,048,576 in random order, a min-id tie planted), then at both
@@ -139,6 +144,7 @@ import numpy as np
 import torch
 
 # the port itself: in a directory without it this import fails
+from surfelmapping_tpu_torch.ops import active
 from surfelmapping_tpu_torch.tools.compare import (flat, float32_gradients_held,
                                                    float32_steps_held, gap_summary, grad_gaps,
                                                    step_gaps)
@@ -589,7 +595,8 @@ def phase_main(dev, cam, params, kernels, smi: str) -> tuple:
          staging_s=stage_s, run_s=run_s, windows=windows, idle=idle, live_count=mapper.count,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          events=mapper.events, launches=launches, card=smi)
-    if launches["preprocess_stencil"] < 100 or launches["zbuffer_argmin"] < 99:
+    if (launches["preprocess_stencil"] < 100 or launches["zbuffer_argmin"] < 99
+            or launches["associate_merge"] < 99):
         raise AssertionError(f"main: kernels not on the path: {launches}")
     emit("main_map", **map_checks(mapper.smap, scene))
     return mapper, scene, host, frames, launches, dict(windows=windows, idle=idle)
@@ -636,6 +643,78 @@ def phase_holds(dev, mapper, frames, zbuf_mod) -> None:
          k1_pixels_hit=int((ib != INT32_MAX).sum()), k1_exact=True, k1_ms=k1_ms,
          k1_ms_device=k1_ms_device, k1_ms_device_cold=k1_ms_device_cold,
          k1_plain_ms=k1_plain_ms, k2_bit_equal=True)
+
+
+def associate_bytes(args) -> float:
+    """The association stage's least device bytes on ``args``: each depth
+    pixel read once; each checkerboard pixel's colour, class and F x F
+    index entries; the 9 table attributes (36 B) of each distinct slot
+    read; and the 12 AssocFlat columns written (52 B)."""
+    depth, _, _, index, _, _, _, _, cam, params = args
+    n = cam.height * cam.width // 2
+    windows = torch.stack([active.checkerboard_flat(index[wj::params.index_factor,
+                                                          wi::params.index_factor])
+                           for wi in range(params.index_factor)
+                           for wj in range(params.index_factor)])
+    slots = torch.unique(torch.where(windows >= 0, windows, 0)).numel()
+    return 4.0 * depth.numel() + n * (12.0 + 4.0 + 8.0 * windows.shape[0] + 52.0) + 36.0 * slots
+
+
+def phase_associate(dev, mapper, frames) -> dict:
+    """The association kernel against its plain version, bit for bit: on
+    tools/assoc_cases.py's cases, and on the main path's own state (the
+    last frame's depth after remove_movings, the active table after the
+    conflict pass, the index image from K1); timed there, beside its
+    bytes bound, the plain version and its device launches per call."""
+    from surfelmapping_tpu_torch.ops.preprocess import preprocess_frame, remove_movings
+    from surfelmapping_tpu_torch.ops.transforms import compose, invert_se3
+    from surfelmapping_tpu_torch.tools.assoc_cases import (CASES, association_case,
+                                                           differing_columns)
+
+    def held(name, args):
+        got = active.associate_active(*args)
+        want = active.associate_active_plain(*args)
+        bad = differing_columns(got, want)
+        if bad:
+            raise AssertionError(f"associate {name}: kernel != plain on {bad} entries")
+        return want
+
+    for case in CASES:
+        held(case, association_case(case, dev))
+
+    cam, params, B = mapper.cam, mapper.params, mapper.map_config.block_size
+    (rgb, depth, sem, pose), (_, last_raw, last_sem, last_pose) = frames[-1], frames[-2]
+    smap, T_inv = mapper.smap, invert_se3(pose)
+    last_depth = preprocess_frame(last_raw, last_sem, cam, params)
+    depth_m = remove_movings(preprocess_frame(depth, sem, cam, params), sem, last_depth,
+                             compose(invert_se3(last_pose), pose), cam, params)
+    budget = min(mapper.active_blocks, smap.capacity // B)
+    blk, n_active = active.plan_active_blocks(smap, T_inv, cam, params, budget, B)
+    at, _ = active.conflict_active(active.gather_active(smap, blk, B), depth_m, sem, T_inv, cam,
+                                   params, params.near_clip, params.far_clip,
+                                   params.fuse_thresh_factor, False)
+    index = active.index_active(at, T_inv, float(mapper.tick), cam, params,
+                                active.valid_prefix(n_active, blk.shape[0], B))
+    args = (depth_m, rgb, sem, index, at, pose, T_inv, float(mapper.tick), cam, params)
+    want = held("main path", args)
+    kernel = lambda: active.associate_active(*args)  # noqa: E731
+    plain = lambda: active.associate_active_plain(*args)  # noqa: E731
+    launches = device_profile(kernel)[0]
+    if launches != 1:
+        raise AssertionError(f"associate: {launches} device launches per call, not 1")
+    # the plain version's ~470 launches outlast a hold: its card time is the profiler's
+    plain_launches, plain_ms_device = device_profile(plain, calls=4)
+    bytes_ = associate_bytes(args)
+    r = dict(H=cam.height, W=cam.width, cases=len(CASES) + 1, bit_equal=True,
+             table_slots=at.size, merged=int((want.mark >= 0).sum()),
+             new=int((want.mark == -1).sum()), device_launches_per_call=launches,
+             ms=cuda_ms(kernel, 100), ms_device=cuda_ms(kernel, 100, hold=True),
+             ms_device_cold=cuda_ms_cold(kernel, 20),
+             plain_ms=cuda_ms(plain, 20), plain_ms_device=plain_ms_device,
+             plain_device_launches_per_call=plain_launches,
+             bytes=bytes_, bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    emit("associate", **r)
+    return r
 
 
 def phase_outres(dev, outres_mod) -> dict:
@@ -2016,6 +2095,7 @@ def main() -> int:
         return 1
     from surfelmapping_tpu_torch.config import PipelineParams
     from surfelmapping_tpu_torch.io.synthetic import kitti_cam
+    from surfelmapping_tpu_torch.ops import associate_merge as assoc_mod
     from surfelmapping_tpu_torch.ops import preprocess_stencil as k2_mod
     from surfelmapping_tpu_torch.ops import zbuf as zbuf_mod
     from surfelmapping_tpu_torch.ops import zbuf_outres as outres_mod
@@ -2029,7 +2109,7 @@ def main() -> int:
     emit("device", kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
-    kernels = [zbuf_mod.KERNEL, k2_mod.KERNEL, outres_mod.KERNEL]
+    kernels = [zbuf_mod.KERNEL, k2_mod.KERNEL, outres_mod.KERNEL, assoc_mod.KERNEL]
     counters = kernels + [outres_mod.P1, outres_mod.P2]
     t0 = time.perf_counter()
     build_all(kernels)
@@ -2053,6 +2133,7 @@ def main() -> int:
     phase_small_icp(dev)
     mapper, scene, host, frames, fusion, main_rate = phase_main(dev, cam, params, counters, smi)
     phase_holds(dev, mapper, frames, zbuf_mod)
+    assoc = phase_associate(dev, mapper, frames)
     views, per_view, render = phase_render(dev, mapper, scene, counters, smi)
     phase_render_holds(dev, mapper, scene, views[0], per_view[0]["n_active_blocks"], zbuf_mod)
     phase_small_spade(dev)
@@ -2100,6 +2181,11 @@ def main() -> int:
              bound_by=k2["bound_by"], library_ms=None, ms_device=k2["ms_device"],
              ms_device_cold=k2["ms_device_cold"], ctas_per_sm=k2_build["ctas_per_sm"],
              sass_instructions_per_tap=k2_build["sass_instructions_per_tap"]),
+        dict(name="associate_merge", route="cuda", source=assoc_mod.KERNEL.repo_source,
+             replaces=None, launches=fusion["associate_merge"], max_abs_err=0.0,
+             ms=assoc["ms"], plain_ms=assoc["plain_ms"], bound_ms=assoc["bound_ms"],
+             bound_by="bytes", library_ms=None, ms_device=assoc["ms_device"],
+             ms_device_cold=assoc["ms_device_cold"]),
         outres_row("pallas_zbuf", "tools/probe_pallas_zbuf.py:94", probe, 453_632,
                    probes["pallas_zbuf"], outres_mod.KERNEL.repo_source),
         outres_row("outres", "tools/probe_zbuf_variants.py:66", probe, 4 * 453_620,

@@ -38,6 +38,7 @@ import torch
 
 from ..config import CameraIntrinsics, PipelineParams
 from ..surfels import SurfelMap
+from .associate_merge import associate_merge
 from .frame_surfels import association_candidates, ray_geometry
 from .index_map import INT32_MAX, _depth_key
 from .transforms import acos, ieee_sqrt, transform_planar
@@ -413,7 +414,32 @@ def associate_active(
     params: PipelineParams,
     fuse_thresh: float | None = None,
 ) -> AssocFlat:
-    """The data.vert association + merge kernel on flat checkerboard pixels.
+    """The data.vert association + merge kernel on flat checkerboard pixels:
+    :func:`associate_active_plain` for CPU tensors, one launch of the CUDA
+    kernel (ops/associate_merge.py) for CUDA tensors, the same bits."""
+    if fuse_thresh is None:
+        fuse_thresh = params.fuse_thresh_factor
+    if depth.device.type == "cpu":
+        return associate_active_plain(depth, rgb, semantic, index_image, at, pose, T_inv,
+                                      time, cam, params, fuse_thresh)
+    return AssocFlat(**associate_merge(depth, rgb, semantic, index_image, at, pose, T_inv,
+                                       time, cam, params, fuse_thresh))
+
+
+def associate_active_plain(
+    depth: torch.Tensor,
+    rgb: torch.Tensor,
+    semantic: torch.Tensor,
+    index_image: torch.Tensor,
+    at: ActiveTable,
+    pose: torch.Tensor,
+    T_inv: torch.Tensor,
+    time: float,
+    cam: CameraIntrinsics,
+    params: PipelineParams,
+    fuse_thresh: float | None = None,
+) -> AssocFlat:
+    """The association stage as eager PyTorch ops, on any device.
 
     Reproduced quirks: index validity ``id`` valid iff the slot maps to a
     global id > 0 (enforced at the index scatter); merged color = new color

@@ -10,6 +10,7 @@ runs on a machine that has only PyTorch, without the suite's conftest:
     python -m pytest --noconftest -o addopts= -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -20,6 +21,8 @@ from PIL import Image
 from surfelmapping_tpu_torch.config import CameraIntrinsics, MapConfig, PipelineParams
 from surfelmapping_tpu_torch.io.synthetic import (STENCIL_CASES, SyntheticScene, kitti_cam,
                                                   stencil_frame, tiny_cam)
+from surfelmapping_tpu_torch.ops import active
+from surfelmapping_tpu_torch.ops import associate_merge as am
 from surfelmapping_tpu_torch.ops import preprocess_stencil as k2
 from surfelmapping_tpu_torch.ops import zbuf as k1
 from surfelmapping_tpu_torch.ops import zbuf_outres as outres
@@ -42,7 +45,10 @@ from surfelmapping_tpu_torch.tools.compare import (flat, float32_gradients_held,
 from surfelmapping_tpu_torch.ops.active import table_from_map
 from surfelmapping_tpu_torch.ops.transforms import compose, invert_se3
 from surfelmapping_tpu_torch.pipeline import SurfelMapper
+from surfelmapping_tpu_torch.tools.assoc_cases import CASES as ASSOC_CASES
+from surfelmapping_tpu_torch.tools.assoc_cases import association_case, differing_columns
 from surfelmapping_tpu_torch.tools.timing import ORDERS, ordered_candidates
+from surfelmapping_tpu_torch.utils import tracing
 
 pytestmark = pytest.mark.gpu
 
@@ -183,14 +189,61 @@ def test_main_path_on_the_card_matches_the_cpu(cuda):
     scene = SyntheticScene(tiny_cam(), step=0.4)
     card = SurfelMapper(tiny_cam(), params, MapConfig(capacity=1 << 16), device=cuda)
     cpu = SurfelMapper(tiny_cam(), params, MapConfig(capacity=1 << 16), device="cpu")
-    n1, n2 = k1.KERNEL.launches, k2.KERNEL.launches
+    n1, n2, n3 = k1.KERNEL.launches, k2.KERNEL.launches, am.KERNEL.launches
     for i in range(5):
         frame = scene.frame(i)
         got = {k: int(v) for k, v in card.process_frame(*frame).items()}
         assert got == {k: int(v) for k, v in cpu.process_frame(*frame).items()}, i
     assert k1.KERNEL.launches - n1 == 4
     assert k2.KERNEL.launches - n2 == 5
+    assert am.KERNEL.launches - n3 == 4
     assert card.count == cpu.count > 0
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("case", list(ASSOC_CASES))
+def test_associate_kernel_matches_plain(case, seed, cuda):
+    """The association kernel against its plain version on the card, every
+    AssocFlat column bit for bit: tombstones, padding slots, slot 0, empty
+    and stray index pixels, sky and moving classes, index_factor 1 and 2,
+    and the KITTI shape.  One launch, one ``fuse.associate_kernel`` count."""
+    args = association_case(case, cuda, seed)
+    before = am.KERNEL.launches
+    tracing.enable()
+    try:
+        got = active.associate_active(*args)
+        counted = sum(r.n for r in tracing.records() if r.name == "fuse.associate_kernel")
+    finally:
+        tracing.enable(False)
+    assert am.KERNEL.launches == before + 1 and counted == 1
+    want = active.associate_active_plain(*args)
+    torch.cuda.synchronize()
+    assert differing_columns(got, want) == {}, case
+    assert (want.mark >= 0).any() or case == "random"
+    assert (want.mark == -1).any() and (want.mark == -10).any()
+
+
+def test_associate_wrapper_rejects_bad_inputs(cuda):
+    depth, rgb, sem, index, table, pose, T_inv, time, cam, params = association_case(
+        "surface_f2", cuda)
+    ft = params.fuse_thresh_factor
+
+    def call(**kw):
+        a = dict(depth=depth, rgb=rgb, semantic=sem, index_image=index, at=table, pose=pose,
+                 T_inv=T_inv)
+        a.update(kw)
+        return am.associate_merge(**a, time=time, cam=cam, params=params, fuse_thresh=ft)
+
+    with pytest.raises(ValueError, match="float32"):
+        call(depth=depth.double())
+    with pytest.raises(ValueError, match="shape"):
+        call(index_image=index[::2, ::2].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(rgb=rgb.permute(1, 0, 2).contiguous().permute(1, 0, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        call(at=dataclasses.replace(table, radius=table.radius.cpu()))
+    with pytest.raises(ValueError, match="int64"):
+        call(index_image=index.int())
 
 
 def _outres_case(P, seed=0):
