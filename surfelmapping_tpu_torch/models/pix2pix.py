@@ -43,6 +43,7 @@ the one-process step on the global batch:
 from __future__ import annotations
 
 import dataclasses
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -53,6 +54,7 @@ from ..ops.transforms import full_precision_matmul
 from ..parallel.distributed import Comm
 from ..parallel.distributed import shard_rows as shard_batch  # the JAX package's name
 from ..pipeline import resolve_device
+from ..utils import tracing
 from .losses import (VGG19Features, feature_matching_loss, kld_loss, load_vgg19_weights,
                      multiscale_hinge_d, multiscale_hinge_g, vgg_loss)
 from .spade import LABEL_NC, MultiscaleDiscriminator, build_modules
@@ -118,14 +120,14 @@ def adam_numpy(params: dict, lr: float) -> dict:
                             "1": {}}}
 
 
-def init_state_numpy(cfg: SpadeConfig) -> dict:
+def init_state_numpy(cfg: SpadeConfig, seed: int = 0) -> dict:
     """A whole training state in the tree that
     ``flax.serialization.to_state_dict(dataclasses.asdict(state))`` gives
     for the JAX package's TrainState, freshly initialised: the generator as
-    :func:`init_variables` draws it at seed 0 (the CLI's), then the
+    :func:`init_variables` draws it at ``seed`` (the CLI's is 0), then the
     discriminator and (with VGG on and no pretrained file, see
     ``losses.load_vgg19_weights``) VGG19 from the same ``torch.Generator``."""
-    g = torch.Generator().manual_seed(0)
+    g = torch.Generator().manual_seed(seed)
     gv = _generator_variables(cfg, g)
     dv = convert.init_numpy(discriminator(cfg, "meta"), g)
     vgg = None
@@ -234,7 +236,8 @@ class TrainState:
 
 
 def _nchw(x: torch.Tensor, device) -> torch.Tensor:
-    return x.to(device).permute(0, 3, 1, 2).contiguous()
+    # a pinned batch goes to the card without blocking the host
+    return x.to(device, non_blocking=True).permute(0, 3, 1, 2).contiguous()
 
 
 class SpadeTrainer(nn.Module):
@@ -318,9 +321,9 @@ class SpadeTrainer(nn.Module):
                                 ["params"]}),
                 "step": np.asarray(state.step, np.int32)}
 
-    def init_state(self) -> TrainState:
-        """A fresh TrainState from :func:`init_state_numpy`."""
-        return self.state_from_numpy(init_state_numpy(self.cfg))
+    def init_state(self, seed: int = 0) -> TrainState:
+        """A fresh TrainState from :func:`init_state_numpy` at ``seed``."""
+        return self.state_from_numpy(init_state_numpy(self.cfg, seed))
 
     def update_learning_rate(self, state: TrainState, epoch: int) -> TrainState:
         """Linear LR decay to zero over the last ``niter_decay`` epochs
@@ -381,7 +384,10 @@ class SpadeTrainer(nn.Module):
         tail = [torch.as_tensor(v, dtype=ref.dtype, device=ref.device).detach().reshape(1)
                 for v in logs.values()]
         buf = torch.cat([g.reshape(-1) for g in grads] + tail)
-        self.comm.all_reduce(buf, "sum")
+        tracing.count("spade.allreduce_bytes", buf.numel() * buf.element_size())
+        with tracing.span("spade.allreduce"), (tracing.span(tracing.WAIT) if
+                                               self.comm.blocks_host else nullcontext()):
+            self.comm.all_reduce(buf, "sum")
         parts = buf.split([g.numel() for g in grads] + [1] * len(tail))
         return ([p.view_as(g) for p, g in zip(parts, grads)],
                 {k: p[0] for k, p in zip(logs, parts[len(grads):])})
@@ -398,6 +404,7 @@ class SpadeTrainer(nn.Module):
         seg, img = _nchw(label, self.device), _nchw(real, self.device)
         state.g.train()
         state.d.eval()
+        calls = 0 if self.comm is None else self.comm.calls
         with torch.enable_grad():
             fake, kld_aux = self._generate(state, seg, img, self.g_rng, noise)
             fake_feats, real_feats = self._discriminate(state.d, seg, fake, img)
@@ -408,6 +415,8 @@ class SpadeTrainer(nn.Module):
             # this rank's part of the global batch's means; the KLD sums over the batch
             total = (l_gan + l_fm + l_vgg) / self.world + l_kld
             grads = torch.autograd.grad(total, state.g_opt.params)  # none for D
+        if self.world > 1:  # the batch norms' all-reduces, forward and backward
+            tracing.count("spade.bn_allreduces", self.comm.calls - calls)
         logs = {"g_gan": l_gan / self.world, "g_fm": l_fm / self.world,
                 "g_vgg": l_vgg / self.world}
         if kld_aux is not None:

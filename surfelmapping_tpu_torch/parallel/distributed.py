@@ -75,6 +75,12 @@ class Comm:
         self.calls = 0
         self.bytes = 0
 
+    @property
+    def blocks_host(self) -> bool:
+        """Whether a collective returns only once it is done (gloo); an
+        NCCL collective is queued on the card's stream."""
+        return self.backend == "gloo"
+
     def _count(self, t: torch.Tensor) -> None:
         self.calls += 1
         self.bytes += t.numel() * t.element_size()
@@ -142,20 +148,22 @@ def sum_over_ranks(t: torch.Tensor, comm: Comm | None) -> torch.Tensor:
     return _SumOverRanks.apply(t, comm)
 
 
-def shard_rows(comm: Comm | None, *arrays):
-    """This rank's contiguous rows of each global batch in ``arrays``
-    (tensors or numpy arrays of B rows): rank r of D holds rows
-    [r * B / D, (r + 1) * B / D), the leading-axis sharding of
-    ``pix2pix.shard_batch``.  Raises where B is not a multiple of D.  All of
-    each array without a group."""
+def rank_rows(comm: Comm | None, n: int) -> slice:
+    """This rank's contiguous rows of a global batch of ``n``: rank r of D
+    holds rows [r * n / D, (r + 1) * n / D), the leading-axis sharding of
+    ``pix2pix.shard_batch``.  Raises where n is not a multiple of D."""
     size, rank = (1, 0) if comm is None else (comm.size, comm.rank)
-    out = []
-    for a in arrays:
-        if a.shape[0] % size:
-            raise ValueError(f"a batch of {a.shape[0]} rows does not split over {size} ranks")
-        n = a.shape[0] // size
-        out.append(a[rank * n:(rank + 1) * n])
-    return tuple(out)
+    if n % size:
+        raise ValueError(f"a batch of {n} rows does not split over {size} ranks")
+    k = n // size
+    return slice(rank * k, (rank + 1) * k)
+
+
+def shard_rows(comm: Comm | None, *arrays):
+    """This rank's rows (:func:`rank_rows`) of each global batch in
+    ``arrays`` (tensors or numpy arrays of B rows).  All of each array
+    without a group."""
+    return tuple(a[rank_rows(comm, a.shape[0])] for a in arrays)
 
 
 def initialize(backend: str | None = None, init_method: str | None = None,
@@ -240,20 +248,27 @@ def save_checkpoint(state: ShardedMapState, comm: Comm, path: str, start_id: int
 # Local launcher
 # ---------------------------------------------------------------------------
 
+GRACE_S = 5.0  # seconds the other ranks get to end on their own after one fails
+
+
 def spawn_ranks(argv: list[str], num_processes: int, backend: str, timeout: float = 600.0,
                 extra_env: dict | None = None) -> list[subprocess.CompletedProcess]:
     """Run ``argv`` in ``num_processes`` local processes, rank r with
     ``RANK=r``, ``LOCAL_RANK=r``, ``WORLD_SIZE``, the backend and a
     ``FileStore`` rendezvous in a fresh temporary directory; the repository
-    root goes first on ``PYTHONPATH``.  When one rank fails, or the timeout
-    passes, every rank still running is killed and this raises with the end
-    of each rank's output.  Returns the completed processes (their output
-    in ``stdout``)."""
+    root goes first on ``PYTHONPATH``.  When one rank fails, the others get
+    :data:`GRACE_S` seconds to end on their own (a rank whose peer died
+    fails in its next collective), then every rank still running is killed
+    and this raises, naming the first rank that failed, with the end of
+    each rank's output.  The timeout kills every rank too.  Returns the
+    completed processes (their output in ``stdout``)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     with tempfile.TemporaryDirectory(prefix="surfel_job_") as td:
         procs, logs = [], []
         path = os.pathsep.join([str(REPO_ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+        first = None  # the first rank seen to fail
+        timed_out = False
         try:
             for r in range(num_processes):
                 env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
@@ -265,14 +280,18 @@ def spawn_ranks(argv: list[str], num_processes: int, backend: str, timeout: floa
                 procs.append(subprocess.Popen(argv, env=env, stdout=log,
                                               stderr=subprocess.STDOUT))
             deadline = time.monotonic() + timeout
-            failed = timed_out = False
             while True:
                 codes = [p.poll() for p in procs]
-                if all(c == 0 for c in codes):
+                if all(c is not None for c in codes) and (first is not None
+                                                          or all(c == 0 for c in codes)):
                     break
-                failed = any(c not in (None, 0) for c in codes)
-                timed_out = time.monotonic() > deadline
-                if failed or timed_out:
+                if first is None:
+                    failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
+                    if failed:
+                        first = failed[0]
+                        deadline = min(deadline, time.monotonic() + GRACE_S)
+                if time.monotonic() > deadline:
+                    timed_out = first is None
                     break
                 time.sleep(0.05)
         finally:
@@ -287,8 +306,9 @@ def spawn_ranks(argv: list[str], num_processes: int, backend: str, timeout: floa
             log.close()
     results = [subprocess.CompletedProcess(argv, p.returncode, out, None)
                for p, out in zip(procs, outs)]
-    if failed or timed_out:
-        why = f"timed out after {timeout} s" if timed_out and not failed else "failed"
+    if first is not None or timed_out:
+        why = (f"failed: rank {first} first (exit {procs[first].returncode})"
+               if first is not None else f"timed out after {timeout} s")
         tails = "\n".join(f"--- rank {r} (exit {p.returncode}) ---\n{out[-3000:]}"
                           for r, (p, out) in enumerate(zip(procs, outs)))
         raise RuntimeError(f"distributed job {why}:\n{tails}")

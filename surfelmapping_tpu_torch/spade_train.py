@@ -5,7 +5,7 @@ counterpart; reference SPADE/train.py).
         [--niter 100 --niter-decay 100] [--batch B] [--crop 256]
         [--d-steps-per-g 2] [--ckpt-dir checkpoints/spade]
         [--continue-train] [--steps-per-epoch N] [--device cuda|cpu]
-        [--devices D [--timeout S]]
+        [--devices D [--timeout S]] [--profile]
 
 Epoch loop over niter + niter_decay epochs, a D step every iteration and a
 G step every ``--d-steps-per-g`` iterations, TTUR Adam, hinge + FM (+ VGG)
@@ -16,10 +16,17 @@ its TrainState): either package's ``spade_test`` reads it, and either
 package's ``--continue-train`` resumes it.  Runs on the CUDA card unless
 ``--device cpu`` is given.
 
+Batches: every rank makes every global batch's random draws (the pair,
+the crop, the flip, the erasing) in the same order, so a seed and
+``--batch`` give the same samples for any number of ranks, and decodes
+only its own rows; a worker thread decodes the next two batches while
+the card runs the steps (``models.data.Prefetched``).  :func:`train_iteration` is one
+iteration of the loop, which the benchmark's training cell calls too.
+
 Data parallel (the JAX CLI's mesh branch): ``--devices D`` runs D ranks
 (NCCL ranks, one per card, or gloo ranks on the CPU with ``--device cpu``;
 ``--timeout`` kills every rank after S seconds, or when one fails).  Every
-rank draws the same global batches and trains on its rows of them; the
+rank trains on its rows of the global batches; the
 batch norms, the gradients and the printed losses are global
 (``models.pix2pix``), so the run trains as one process on the global batch
 would.  Rank 0 alone writes the options, the log, the gallery, iter.txt
@@ -32,8 +39,11 @@ is one rank of the job.
 from __future__ import annotations
 
 import argparse
+import gc
 import os
 import sys
+
+from .utils import tracing
 
 
 def main(argv=None) -> int:
@@ -73,6 +83,8 @@ def main(argv=None) -> int:
                          "or gloo ranks on the CPU with --device cpu")
     ap.add_argument("--timeout", type=float, default=86400.0,
                     help="seconds after which a multi-rank job is killed, every rank")
+    ap.add_argument("--profile", action="store_true",
+                    help="record the spans and print their summary at the end (rank 0)")
     args = ap.parse_args(argv)
 
     import torch
@@ -92,23 +104,46 @@ def main(argv=None) -> int:
             raise RuntimeError(f"--devices {args.devices} in a job of {comm.size} ranks")
         if comm.backend == "nccl":
             device = torch.device("cuda", torch.cuda.current_device())
+    if args.profile:
+        tracing.enable()
     try:
         return train(args, device, comm)
     finally:
         if comm is not None:
             shutdown()
+        if args.profile and (comm is None or comm.rank == 0):
+            print(tracing.summary())
+
+
+def train_iteration(trainer, state, batches, it: int, with_g: bool):
+    """One iteration of the training loop (collective across ranks): the
+    rank's rows of the next global batch from ``batches`` (a
+    ``models.data.Prefetched``; the wait for it is the ``spade.data``
+    span), a D step, and a G step when ``with_g``, under the root span
+    ``spade.iter`` with id ``it``.  Returns the state, the batch and the
+    steps' logs (global, as 0-d tensors)."""
+    with tracing.span("spade.iter", root_id=it):
+        with tracing.span("spade.data"), tracing.span(tracing.WAIT):
+            lab, img = next(batches)
+        with tracing.span("spade.d_step"):
+            state, logs = trainer.d_step(state, lab, img)
+        logs = dict(logs)
+        if with_g:
+            with tracing.span("spade.g_step"):
+                state, glogs = trainer.g_step(state, lab, img)
+            logs.update(glogs)
+    return state, (lab, img), logs
 
 
 def train(args, device, comm) -> int:
     """The training run of :func:`main`'s parsed ``args`` on ``device``: in
     this process alone (``comm`` None) or as one rank of a data-parallel
     job."""
-    import torch
-
     from .models.checkpoint import load_train_state, save_train_state
-    from .models.data import KITTI_BAD_FRAME_RANGES, PairedRenderDataset
-    from .models.pix2pix import SpadeConfig, SpadeTrainer, shard_batch
+    from .models.data import KITTI_BAD_FRAME_RANGES, PairedRenderDataset, Prefetched
+    from .models.pix2pix import SpadeConfig, SpadeTrainer
     from .models.train_utils import IterationCounter, Visualizer, save_options
+    from .parallel.distributed import rank_rows
 
     lead = comm is None or comm.rank == 0
     if lead:
@@ -160,36 +195,42 @@ def train(args, device, comm) -> int:
     for e in range(1, counter.first_epoch):
         state = trainer.update_learning_rate(state, e)
 
-    for epoch in counter.training_epochs():
-        counter.record_epoch_start(epoch)
-        for i, (lab, img) in enumerate(ds.batches(args.batch, steps_per_epoch)):
-            lab, img = shard_batch(comm, torch.from_numpy(lab), torch.from_numpy(img))
-            state, dlogs = trainer.d_step(state, lab, img)
-            logs = dict(dlogs)
-            if i % args.d_steps_per_g == 0:
-                state, glogs = trainer.g_step(state, lab, img)
-                logs.update(glogs)
-            counter.record_one_iteration()
-            if counter.needs_printing(args.log_every * args.batch):
-                viz.print_current_errors(epoch, counter.epoch_iter, logs)
-            if lead and counter.needs_displaying(args.display_every * args.batch):
-                fake = trainer.infer(lab, state=state)
-                viz.display_current_results(
-                    {
-                        "input_label": lab[0].numpy(),
-                        "synthesized_image": fake[0].cpu().numpy(),
-                        "real_image": img[0].numpy(),
-                    },
-                    epoch, counter.total_steps_so_far,
-                )
-            if counter.needs_saving():
-                save(state)
-        counter.record_epoch_end()
-        state = trainer.update_learning_rate(state, epoch)
-        g_lr, d_lr = trainer.current_lrs(state)
-        if lead:
-            print(f"epoch {epoch} done; lr G={g_lr:.2e} D={d_lr:.2e}")
-        save(state)
+    epochs = counter.training_epochs()
+    # one stream for every epoch: the same draws as a generator per epoch
+    batches = Prefetched(ds.batches(args.batch, steps_per_epoch * len(epochs),
+                                    rank_rows(comm, args.batch)),
+                         pin=device.type == "cuda")
+    gc.collect()
+    gc.freeze()  # what lives now is left out of the collector's passes in the loop
+    with batches:
+        for epoch in epochs:
+            counter.record_epoch_start(epoch)
+            for i in range(steps_per_epoch):
+                state, (lab, img), logs = train_iteration(
+                    trainer, state, batches, counter.total_steps_so_far // args.batch,
+                    i % args.d_steps_per_g == 0)
+                counter.record_one_iteration()
+                if counter.needs_printing(args.log_every * args.batch):
+                    viz.print_current_errors(epoch, counter.epoch_iter, logs)
+                if lead and counter.needs_displaying(args.display_every * args.batch):
+                    fake = trainer.infer(lab, state=state)
+                    viz.display_current_results(
+                        {
+                            "input_label": lab[0].numpy(),
+                            "synthesized_image": fake[0].cpu().numpy(),
+                            "real_image": img[0].numpy(),
+                        },
+                        epoch, counter.total_steps_so_far,
+                    )
+                if counter.needs_saving():
+                    save(state)
+            counter.record_epoch_end()
+            state = trainer.update_learning_rate(state, epoch)
+            g_lr, d_lr = trainer.current_lrs(state)
+            if lead:
+                print(f"epoch {epoch} done; lr G={g_lr:.2e} D={d_lr:.2e}")
+            save(state)
+    gc.unfreeze()
     return 0
 
 

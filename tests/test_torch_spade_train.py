@@ -499,14 +499,14 @@ def test_train_utils_match_jax(tmp_path):
 def _cli_files(ckpt) -> dict:
     """What the CLI leaves in its checkpoint directory, less its run's own
     numbers: iter.txt, the loss log's epochs, iterations and keys, opt.txt
-    (its own path read as CKPT) without the port's --device, --devices and
-    --timeout lines, and the gallery's file names."""
+    (its own path read as CKPT) without the port's --device, --devices,
+    --timeout and --profile lines, and the gallery's file names."""
     log = [ln for ln in (ckpt / "loss_log.txt").read_text().splitlines()
            if not ln.startswith("===")]
     keys = [(ln.split(")")[0], [w for w in ln.split(")")[1].split() if w.endswith(":")])
             for ln in log]
     opt = [ln.replace(str(ckpt), "CKPT") for ln in (ckpt / "opt.txt").read_text().splitlines()
-           if not ln.startswith(("device:", "devices:", "timeout:"))]
+           if not ln.startswith(("device:", "devices:", "timeout:", "profile:"))]
     return {"iter": (ckpt / "iter.txt").read_text(), "log": keys, "opt": opt,
             "images": sorted(os.listdir(ckpt / "web" / "images")),
             "files": sorted(os.listdir(ckpt))}
