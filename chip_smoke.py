@@ -52,6 +52,10 @@ Phases, each printed as one JSON line:
   render_holds  on one of those views: K1 vs its plain version on the view's
            own candidates (exact), fast vs exact renderer, and a render at a
            mapping pose vs that input frame
+  dilate   the dilation kernel vs the plain loop, bit for bit: at the
+           renderer's shape (370x1226, classes 1, 2, 3, 5) on
+           tools/dilate_cases.py's cases and on that view's own K1 buffers;
+           timed there warm and cold beside its bytes bound and the loop
   probes   the probe entry points (tools.probe_pallas_zbuf,
            tools.probe_zbuf_variants), which run P1 and P2
   small_icp  tracking on a 128x96 camera, on the card vs on the CPU (plain
@@ -845,9 +849,9 @@ def phase_render(dev, mapper, scene, counters, smi: str) -> tuple:
              max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
              per_view=per_view, card=smi)
     emit("render", **r)
-    if launches["zbuffer_argmin"] < len(views):
-        raise AssertionError(f"render: K1 launched {launches['zbuffer_argmin']} times "
-                             f"for {len(views)} views")
+    if launches["zbuffer_argmin"] < len(views) or launches["disc_dilate"] < len(views):
+        raise AssertionError(f"render: K1 and the dilation launched {launches['zbuffer_argmin']}"
+                             f" and {launches['disc_dilate']} times for {len(views)} views")
     return views, per_view, launches
 
 
@@ -870,16 +874,13 @@ def render_checks(out: dict, capacity: int, cam) -> dict:
     return dict(coverage=coverage)
 
 
-def phase_render_holds(dev, mapper, scene, view, n_active: int, zbuf_mod) -> None:
-    """On one rendered view: K1 vs its plain version on the view's own
-    candidates, the fast renderer vs the exact one, and a render at a
-    mapping pose vs that input frame."""
-    from surfelmapping_tpu_torch.metrics import psnr, render_vs_frame_psnr
+def view_candidates(dev, mapper, view, n_active: int) -> tuple:
+    """What render_view hands K1 for ``view`` of the mapper's map: (culled
+    map, keys, class-buffer pixels, classes, n_valid, n_active blocks)."""
     from surfelmapping_tpu_torch.ops.active import valid_prefix
-    from surfelmapping_tpu_torch.ops.splat import cull_for_render, fast_candidates, render_view
+    from surfelmapping_tpu_torch.ops.splat import cull_for_render, fast_candidates
 
-    cam = mapper.cam
-    smap = mapper.smap
+    cam, smap = mapper.cam, mapper.smap
     G = smap.capacity // 2048
     budget = 1
     while budget < n_active:  # render_view's budget for this view
@@ -888,7 +889,19 @@ def phase_render_holds(dev, mapper, scene, view, n_active: int, zbuf_mod) -> Non
     vt = torch.as_tensor(view, device=dev)
     culled, _, n_act = cull_for_render(smap, vt, cam, budget, 2048, margin=7)
     key, cflat, classes, _ = fast_candidates(culled, vt, cam)
-    nv = valid_prefix(n_act, budget, 2048)  # what the renderer hands K1
+    return culled, key, cflat, classes, valid_prefix(n_act, budget, 2048), n_act
+
+
+def phase_render_holds(dev, mapper, scene, view, n_active: int, zbuf_mod) -> None:
+    """On one rendered view: K1 vs its plain version on the view's own
+    candidates, the fast renderer vs the exact one, and a render at a
+    mapping pose vs that input frame."""
+    from surfelmapping_tpu_torch.metrics import psnr, render_vs_frame_psnr
+    from surfelmapping_tpu_torch.ops.splat import render_view
+
+    cam = mapper.cam
+    smap = mapper.smap
+    culled, key, cflat, classes, nv, n_act = view_candidates(dev, mapper, view, n_active)
     slot_valid = torch.arange(culled.capacity, device=dev) < int(n_act) * 2048
     P = len(classes) * cam.height * cam.width
     zb, ib = zbuf_mod.zbuffer_argmin(key, cflat, P, nv)
@@ -933,6 +946,51 @@ def phase_render_holds(dev, mapper, scene, view, n_active: int, zbuf_mod) -> Non
     emit("render_holds", **r)
     if not p_frame > 20.0:
         raise AssertionError(f"render_holds: render at the mapping pose has PSNR {p_frame}")
+
+
+def phase_dilate(dev, mapper, view, n_active: int) -> dict:
+    """The dilation kernel against the plain loop, bit for bit, at the
+    renderer's shape: on tools/dilate_cases.py's cases and on ``view``'s own
+    K1 class buffers; timed there, beside its bytes bound (each class
+    buffer read once, the merged plane written once), the plain loop and
+    the device launches of each per call."""
+    from surfelmapping_tpu_torch.ops import splat
+    from surfelmapping_tpu_torch.ops.disc_dilate import disc_dilate
+    from surfelmapping_tpu_torch.ops.zbuf import zbuffer_argmin_packed
+    from surfelmapping_tpu_torch.tools.dilate_cases import CASES, dilate_case
+
+    cam = mapper.cam
+    H, W = cam.height, cam.width
+
+    def held(name, packed, classes):
+        got = disc_dilate(packed, classes)
+        want = splat.dilate_plain(packed, classes)
+        if not torch.equal(got, want):
+            raise AssertionError(f"dilate {name}: kernel != plain on "
+                                 f"{int((got != want).sum())} pixels")
+
+    for case in CASES:
+        held(case, dilate_case(case, 4, H, W, seed=SEED, device=dev), (1, 2, 3, 5))
+    _, key, cflat, classes, nv, _ = view_candidates(dev, mapper, view, n_active)
+    packed = zbuffer_argmin_packed(key, cflat, len(classes) * H * W, nv).view(len(classes), H, W)
+    held("view", packed, classes)
+    kernel = lambda: disc_dilate(packed, classes)  # noqa: E731
+    plain = lambda: splat.dilate_plain(packed, classes)  # noqa: E731
+    launches = device_profile(kernel)[0]
+    if launches != 1:
+        raise AssertionError(f"dilate: {launches} device launches per call, not 1")
+    plain_launches, plain_ms_device = device_profile(plain, calls=4)
+    bytes_ = 8.0 * (len(classes) + 1) * H * W
+    r = dict(H=H, W=W, classes=list(classes), cases=len(CASES) + 1, bit_equal=True,
+             centres=int((packed != splat.EMPTY_WORD).sum()),
+             device_launches_per_call=launches,
+             ms=cuda_ms(kernel, 100), ms_device=cuda_ms(kernel, 100, hold=True),
+             ms_device_cold=cuda_ms_cold(kernel, 20),
+             plain_ms=cuda_ms(plain, 20), plain_ms_device=plain_ms_device,
+             plain_device_launches_per_call=plain_launches,
+             bytes=bytes_, bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    emit("dilate", **r)
+    return r
 
 
 def phase_probes(counters) -> dict:
@@ -2096,6 +2154,7 @@ def main() -> int:
     from surfelmapping_tpu_torch.config import PipelineParams
     from surfelmapping_tpu_torch.io.synthetic import kitti_cam
     from surfelmapping_tpu_torch.ops import associate_merge as assoc_mod
+    from surfelmapping_tpu_torch.ops import disc_dilate as dilate_mod
     from surfelmapping_tpu_torch.ops import preprocess_stencil as k2_mod
     from surfelmapping_tpu_torch.ops import zbuf as zbuf_mod
     from surfelmapping_tpu_torch.ops import zbuf_outres as outres_mod
@@ -2109,7 +2168,8 @@ def main() -> int:
     emit("device", kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
-    kernels = [zbuf_mod.KERNEL, k2_mod.KERNEL, outres_mod.KERNEL, assoc_mod.KERNEL]
+    kernels = [zbuf_mod.KERNEL, k2_mod.KERNEL, outres_mod.KERNEL, assoc_mod.KERNEL,
+               dilate_mod.KERNEL]
     counters = kernels + [outres_mod.P1, outres_mod.P2]
     t0 = time.perf_counter()
     build_all(kernels)
@@ -2136,6 +2196,7 @@ def main() -> int:
     assoc = phase_associate(dev, mapper, frames)
     views, per_view, render = phase_render(dev, mapper, scene, counters, smi)
     phase_render_holds(dev, mapper, scene, views[0], per_view[0]["n_active_blocks"], zbuf_mod)
+    dilate = phase_dilate(dev, mapper, views[0], per_view[0]["n_active_blocks"])
     phase_small_spade(dev)
     enhance = phase_spade(dev, mapper, views, counters, smi)
     phase_small_spade_train(dev)
@@ -2186,6 +2247,11 @@ def main() -> int:
              ms=assoc["ms"], plain_ms=assoc["plain_ms"], bound_ms=assoc["bound_ms"],
              bound_by="bytes", library_ms=None, ms_device=assoc["ms_device"],
              ms_device_cold=assoc["ms_device_cold"]),
+        dict(name="disc_dilate", route="cuda", source=dilate_mod.KERNEL.repo_source,
+             replaces=None, launches=render["disc_dilate"], max_abs_err=0.0,
+             ms=dilate["ms"], plain_ms=dilate["plain_ms"], bound_ms=dilate["bound_ms"],
+             bound_by="bytes", library_ms=None, ms_device=dilate["ms_device"],
+             ms_device_cold=dilate["ms_device_cold"]),
         outres_row("pallas_zbuf", "tools/probe_pallas_zbuf.py:94", probe, 453_632,
                    probes["pallas_zbuf"], outres_mod.KERNEL.repo_source),
         outres_row("outres", "tools/probe_zbuf_variants.py:66", probe, 4 * 453_620,

@@ -22,9 +22,10 @@ Three renderers, as in the JAX package:
   * :func:`splat_render_fast`, the production path: each surfel's centre
     goes once through the z-buffer kernel K1 (ops/zbuf.py) into one of four
     class buffers by its pixel radius, then disc-shaped min-dilations of the
-    class buffers spread the footprints.  The dilation is plain PyTorch on
-    K1's packed int64 words (key << 32 | id), so each disc stamp is one
-    ``torch.minimum`` (164 stamps for the classes 1, 2, 3, 5).
+    class buffers spread the footprints.  The dilation works on K1's packed
+    int64 words (key << 32 | id): one CUDA kernel on the card
+    (ops/disc_dilate.py), and on the CPU a plain loop of one
+    ``torch.minimum`` per disc stamp (164 for the classes 1, 2, 3, 5).
   * :func:`render_view`: culls the map to the in-frustum blocks first
     (:func:`cull_for_render`), so a view costs O(in-frustum surfels), and
     grows the cull budget until nothing is truncated.
@@ -48,6 +49,7 @@ from ..surfels import COLUMNS, SurfelMap
 from ..utils import tracing
 from .active import _TABLE_COLS, gather_active, valid_prefix
 from .colors import decode_color
+from .disc_dilate import disc_dilate, disc_stamps
 from .index_map import INT32_MAX, _depth_key
 from .transforms import (device_scalar, ieee_sqrt, invert_se3, normalize_planar,
                          rotate_planar, transform_planar)
@@ -350,25 +352,35 @@ def fast_candidates(
     return _depth_key(pz, ok), cflat, classes, large_overflow
 
 
-def _dilate(packed: torch.Tensor, classes: tuple[int, ...],
-            cam: CameraIntrinsics) -> tuple[torch.Tensor, torch.Tensor]:
+def dilate_plain(packed: torch.Tensor, classes: tuple[int, ...]) -> torch.Tensor:
     """Disc-shaped min-dilation of each class's centre buffer, merged over
     the classes: per pixel the smallest (key, id) pair, by key and then by
-    id, among the centres whose class disc covers it.  The buffers come from
-    K1 as int64 words (key << 32) | id, which order the same way, so a stamp
-    is one ``torch.minimum``.  Stamps reaching outside the image read the
-    empty word.  Returns the merged (key, id) planes as int32 views."""
-    H, W = cam.height, cam.width
-    packed = packed.view(len(classes), H, W)
+    id, among the centres whose class disc covers it.  The buffers
+    (i64[NC, H, W]) come from K1 as int64 words (key << 32) | id, which
+    order the same way, so a stamp of :func:`disc_stamps` is one
+    ``torch.minimum``.  Stamps reaching outside the image read the empty
+    word.  Returns the merged i64[H, W] plane."""
+    _, H, W = packed.shape
     out = torch.full((H, W), EMPTY_WORD, dtype=torch.int64, device=packed.device)
     for ci, R in enumerate(classes):
         src = torch.constant_pad_nd(packed[ci], (R, R, R, R), EMPTY_WORD)
-        for dj in range(-R, R + 1):
-            for di in range(-R, R + 1):
-                if dj * dj + di * di > (R + 0.5) ** 2:
-                    continue  # disc-shaped stamp
-                # out[r, c] <- min(out[r, c], centre[r - dj, c - di])
-                torch.minimum(out, src[R - dj:R - dj + H, R - di:R - di + W], out=out)
+        for dj, di in disc_stamps(R):
+            # out[r, c] <- min(out[r, c], centre[r - dj, c - di])
+            torch.minimum(out, src[R - dj:R - dj + H, R - di:R - di + W], out=out)
+    return out
+
+
+def _dilate(packed: torch.Tensor, classes: tuple[int, ...],
+            cam: CameraIntrinsics) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's class buffers dilated and merged (:func:`dilate_plain`): the
+    plain loop for CPU tensors, one launch of the CUDA kernel
+    (ops/disc_dilate.py) for CUDA tensors, the same bits.  Returns the
+    merged (key, id) planes as int32 views."""
+    packed = packed.view(len(classes), cam.height, cam.width)
+    if packed.device.type == "cpu":
+        out = dilate_plain(packed, classes)
+    else:
+        out = disc_dilate(packed, classes)
     return key_id_views(out.reshape(-1))
 
 

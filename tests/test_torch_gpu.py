@@ -23,6 +23,7 @@ from surfelmapping_tpu_torch.io.synthetic import (STENCIL_CASES, SyntheticScene,
                                                   stencil_frame, tiny_cam)
 from surfelmapping_tpu_torch.ops import active
 from surfelmapping_tpu_torch.ops import associate_merge as am
+from surfelmapping_tpu_torch.ops import disc_dilate as dd
 from surfelmapping_tpu_torch.ops import preprocess_stencil as k2
 from surfelmapping_tpu_torch.ops import zbuf as k1
 from surfelmapping_tpu_torch.ops import zbuf_outres as outres
@@ -31,6 +32,7 @@ from surfelmapping_tpu_torch.ops import frame_surfels as fs
 from surfelmapping_tpu_torch.ops.colors import unit_rgb
 from surfelmapping_tpu_torch.ops.preprocess import (metricize_depth, remove_movings,
                                                     stencil_chain_plain)
+from surfelmapping_tpu_torch.ops import splat
 from surfelmapping_tpu_torch.ops.splat import render_view
 from surfelmapping_tpu_torch import ba, build_map, convert, icp, spade_test, spade_train, surfels
 from surfelmapping_tpu_torch.io import native
@@ -47,6 +49,8 @@ from surfelmapping_tpu_torch.ops.transforms import compose, invert_se3
 from surfelmapping_tpu_torch.pipeline import SurfelMapper
 from surfelmapping_tpu_torch.tools.assoc_cases import CASES as ASSOC_CASES
 from surfelmapping_tpu_torch.tools.assoc_cases import association_case, differing_columns
+from surfelmapping_tpu_torch.tools.dilate_cases import CASES as DILATE_CASES
+from surfelmapping_tpu_torch.tools.dilate_cases import dilate_case
 from surfelmapping_tpu_torch.tools.timing import ORDERS, ordered_candidates
 from surfelmapping_tpu_torch.utils import tracing
 
@@ -246,6 +250,67 @@ def test_associate_wrapper_rejects_bad_inputs(cuda):
         call(index_image=index.int())
 
 
+@pytest.mark.parametrize("case", DILATE_CASES)
+def test_dilate_kernel_matches_plain(case, cuda):
+    """The renderer's dilation on the card: one kernel launch and one
+    ``render.dilate_kernel`` count, the merged words equal to the plain
+    loop's bit for bit at KITTI's 370x1226 with the classes (1, 2, 3, 5)."""
+    classes, H, W = (1, 2, 3, 5), 370, 1226
+    packed = dilate_case(case, len(classes), H, W, seed=3, device=cuda)
+    before = dd.KERNEL.launches
+    tracing.enable()
+    try:
+        keys, ids = splat._dilate(packed.reshape(-1), classes, tiny_cam(W, H))
+        counted = sum(r.n for r in tracing.records() if r.name == "render.dilate_kernel")
+    finally:
+        tracing.enable(False)
+    assert dd.KERNEL.launches == before + 1 and counted == 1
+    want = splat.dilate_plain(packed, classes).reshape(-1)
+    torch.cuda.synchronize()
+    assert torch.equal((keys.long() << 32) | ids.long(), want)
+
+
+@pytest.mark.parametrize("classes", [(1, 2, 3, 5), (5,), (1,), (0, 2)])
+@pytest.mark.parametrize("H,W", [(1, 1), (7, 5), (33, 47), (100, 129), (370, 1226)])
+def test_dilate_kernel_at_ragged_shapes(H, W, classes, cuda):
+    """Shapes off the 32x16 tile, a single pixel, fewer pixels than a halo."""
+    for case in ("sparse", "dense"):
+        packed = dilate_case(case, len(classes), H, W, seed=H + W, device=cuda)
+        got = dd.disc_dilate(packed, classes)
+        want = splat.dilate_plain(packed, classes)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), case
+
+
+def test_dilate_kernel_with_a_halo_in_opted_in_shared_memory(cuda):
+    """Radius 40: an 86 KB tile and halo, past the 48 KB a launch has
+    without opting in; a radius whose halo does not fit is refused."""
+    packed = dilate_case("sparse", 2, 50, 70, seed=1, device=cuda)
+    classes = (3, 40)
+    assert torch.equal(dd.disc_dilate(packed, classes), splat.dilate_plain(packed, classes))
+    torch.cuda.synchronize()
+    too_big = dd.max_radius(cuda) + 1
+    with pytest.raises(ValueError, match="shared memory"):
+        dd.disc_dilate(packed[:1].contiguous(), (too_big,))
+
+
+def test_dilate_wrapper_rejects_bad_inputs(cuda):
+    classes = (1, 2, 3, 5)
+    packed = dilate_case("sparse", 4, 16, 24, device=cuda)
+    before = dd.KERNEL.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        dd.disc_dilate(packed.cpu(), classes)
+    with pytest.raises(ValueError, match="int64"):
+        dd.disc_dilate(packed.int(), classes)
+    with pytest.raises(ValueError, match="contiguous"):
+        dd.disc_dilate(packed.transpose(1, 2).contiguous().transpose(1, 2), classes)
+    with pytest.raises(ValueError, match="shape"):
+        dd.disc_dilate(packed, (1, 2, 3))
+    with pytest.raises(ValueError, match="shape"):
+        dd.disc_dilate(packed.reshape(-1), classes)
+    assert dd.KERNEL.launches == before
+
+
 def _outres_case(P, seed=0):
     """2^20 candidates over [0, P): signed keys, INT32_MAX keys, a planted
     min-id tie on pixel 13, and (at P = 453,620 and above) empty pixels."""
@@ -367,10 +432,10 @@ def test_render_view_on_the_card_matches_the_cpu(cuda):
         mapper.process_frame(*scene.frame(i))
     smap, pose = mapper.smap, scene.pose(2)
     for method in ("fast", "exact"):
-        n = k1.KERNEL.launches
+        n, nd = k1.KERNEL.launches, dd.KERNEL.launches
         got = render_view(smap, pose, cam, block_size=256, start_blocks=4, method=method,
                           device=cuda)
-        assert k1.KERNEL.launches - n == (method == "fast")
+        assert k1.KERNEL.launches - n == dd.KERNEL.launches - nd == (method == "fast")
         want = render_view(smap, pose, cam, block_size=256, start_blocks=4, method=method,
                            device="cpu")
         for key in ("rgb", "semantic", "depth", "id", "n_active_blocks"):

@@ -35,10 +35,14 @@ from surfelmapping_tpu_torch import convert, viz
 from surfelmapping_tpu_torch.config import MapConfig, PipelineParams
 from surfelmapping_tpu_torch.io.synthetic import SyntheticScene, tiny_cam
 from surfelmapping_tpu_torch.metrics import psnr
+from surfelmapping_tpu_torch.ops import disc_dilate as dd
 from surfelmapping_tpu_torch.ops import splat
 from surfelmapping_tpu_torch.ops.colors import encode_color
 from surfelmapping_tpu_torch.pipeline import SurfelMapper
 from surfelmapping_tpu_torch.surfels import COLUMNS, empty_map
+from surfelmapping_tpu_torch.tools.dilate_cases import CASES as DILATE_CASES
+from surfelmapping_tpu_torch.tools.dilate_cases import dilate_case
+from surfelmapping_tpu_torch.utils import tracing
 
 CAM = tiny_cam(128, 96)
 IMAGES = ("rgb", "semantic", "depth", "id")
@@ -245,3 +249,94 @@ def test_render_psnr_parity(mapped):
     ingestible[:, :80] = False
     assert hits[ingestible].mean() > 0.3
     assert psnr(out["rgb"].numpy(), rgb.astype(np.float64) / 255.0, hits) > 20.0
+
+
+# ---- the dilation: the disc stamps, the plain loop, the dispatch ----------
+
+@pytest.mark.parametrize("R,n", [(0, 1), (1, 9), (2, 21), (3, 37), (5, 97)])
+def test_disc_stamps_follow_the_disc_rule(R, n):
+    stamps = dd.disc_stamps(R)
+    assert len(stamps) == n == len(set(stamps))
+    assert set(stamps) == {(dj, di) for dj in range(-R - 1, R + 2) for di in range(-R - 1, R + 2)
+                           if dj * dj + di * di <= (R + 0.5) ** 2}
+    assert stamps == tuple(sorted(stamps))  # row by row
+
+
+def test_stamp_table_rows_are_the_disc_stamps():
+    """The kernel's table (ops/disc_dilate.stamp_table) holds each class's
+    disc_stamps as one run of offsets per row, and refuses what the kernel
+    cannot take."""
+    classes = (1, 2, 3, 5)
+    t = dd.stamp_table(classes)
+    assert t.nc == 4 and list(t.radius[:4]) == list(classes)
+    for c, R in enumerate(classes):
+        rows = [(r - R, t.lo[t.row0[c] + r], t.hi[t.row0[c] + r]) for r in range(2 * R + 1)]
+        assert tuple((dj, di) for dj, lo, hi in rows for di in range(lo, hi + 1)) == \
+            dd.disc_stamps(R)
+    assert t.row0[3] + 11 == sum(2 * R + 1 for R in classes)
+    for bad in ((), (1,) * 9, (-1,), (128,), (100, 100, 100, 100, 100, 100)):
+        with pytest.raises(ValueError):
+            dd.stamp_table(bad)
+
+
+def _brute_force_dilation(packed: np.ndarray, classes) -> np.ndarray:
+    """Per pixel, the smallest word among the centres of every class whose
+    disc (distance <= R + 0.5) covers it; the empty word if none."""
+    _, H, W = packed.shape
+    out = np.full((H, W), splat.EMPTY_WORD, np.int64)
+    yy, xx = np.mgrid[0:H, 0:W]
+    for y in range(H):
+        for x in range(W):
+            for c, R in enumerate(classes):
+                near = (yy - y) ** 2 + (xx - x) ** 2 <= (R + 0.5) ** 2
+                out[y, x] = min(out[y, x], packed[c][near].min())
+    return out
+
+
+@pytest.mark.parametrize("classes,H,W", [((1, 2, 3, 5), 19, 23), ((5,), 7, 5), ((1,), 1, 1),
+                                         ((0, 2), 6, 9)])
+@pytest.mark.parametrize("case", DILATE_CASES)
+def test_dilate_on_the_cpu_matches_brute_force(case, classes, H, W):
+    """_dilate's plain loop against a per-pixel search over every centre:
+    centres on the border, equal keys with other ids, signed keys, empty
+    classes; the (key, id) views of the merged words."""
+    packed = dilate_case(case, len(classes), H, W, seed=len(classes) + H)
+    want = _brute_force_dilation(packed.numpy(), classes)
+    cam = tiny_cam(W, H)
+    keys, ids = splat._dilate(packed.reshape(-1), classes, cam)
+    assert np.array_equal(splat.dilate_plain(packed, classes).numpy(), want)
+    assert np.array_equal(keys.numpy(), (want >> 32).reshape(-1))
+    assert np.array_equal(ids.numpy(), (want & 0xFFFFFFFF).reshape(-1))
+    if case == "all_empty" or case == "empty_class" and len(classes) == 1:
+        assert (want == splat.EMPTY_WORD).all()
+    else:
+        assert (want != splat.EMPTY_WORD).any()
+
+
+def test_dilate_on_the_cpu_runs_the_plain_loop(monkeypatch):
+    """CPU tensors never reach the kernel's wrapper: no launch, no
+    ``render.dilate_kernel`` count."""
+    def kernel(*_):
+        raise AssertionError("the CUDA kernel's wrapper was called for CPU tensors")
+
+    monkeypatch.setattr(splat, "disc_dilate", kernel)
+    classes = (1, 2, 3, 5)
+    packed = dilate_case("sparse", 4, 24, 40)
+    before = dd.KERNEL.launches
+    tracing.enable()
+    try:
+        keys, ids = splat._dilate(packed.reshape(-1), classes, tiny_cam(40, 24))
+        counted = [r for r in tracing.records() if r.name == "render.dilate_kernel"]
+    finally:
+        tracing.enable(False)
+    assert dd.KERNEL.launches == before and counted == []
+    want = splat.dilate_plain(packed, classes)
+    assert torch.equal((keys.long() << 32) | (ids.long() & 0xFFFFFFFF), want.reshape(-1))
+
+
+def test_dilate_kernel_wrapper_refuses_cpu_tensors():
+    packed = dilate_case("sparse", 4, 8, 8)
+    before = dd.KERNEL.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        dd.disc_dilate(packed, (1, 2, 3, 5))
+    assert dd.KERNEL.launches == before
