@@ -4,7 +4,8 @@ O(map capacity) (counterpart of surfelmapping_tpu/ops/active.py).
   1. ``plan_active_blocks``  — one dense pass over the whole map computes
      per-surfel view/conflict gates and reduces them to per-*block* activity
      (block = 2048 contiguous slots; surfels append in scan order, so
-     frustum residency is efficient at block granularity).
+     frustum residency is efficient at block granularity) through
+     ``choose_blocks``, the block choice the render cull shares.
   2. ``gather_active``       — gathers the active blocks into a fixed-size
      *active table* of flat 1-D columns.
   3. conflict / index / associate run on the active table with the exact
@@ -40,8 +41,9 @@ from ..config import CameraIntrinsics, PipelineParams
 from ..surfels import SurfelMap
 from .associate_merge import associate_merge
 from .frame_surfels import association_candidates, ray_geometry
-from .index_map import INT32_MAX, _depth_key
-from .transforms import acos, ieee_sqrt, transform_planar
+from .index_map import INT32_MAX, _depth_key, project_surfels
+from .transforms import (acos, ieee_sqrt, normalize_planar, project_planar, rotate_planar,
+                         safe_divisor, transform_planar)
 from .zbuf import zbuffer_argmin
 
 
@@ -128,34 +130,28 @@ def _conflict_gates(u, v, z, cam: CameraIntrinsics, params: PipelineParams,
     )
 
 
-def _project(px, py, pz, T_inv: torch.Tensor, cam: CameraIntrinsics):
-    x, y, z = transform_planar(T_inv, px, py, pz)
-    safe_z = torch.where(torch.abs(z) < 1e-12, 1e-12, z)
-    u = cam.fx * x / safe_z + cam.cx
-    v = cam.fy * y / safe_z + cam.cy
-    return x, y, z, u, v
+def choose_blocks(slot_mask: torch.Tensor, num_blocks: int,
+                  block_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The block choice of the fusion plan and the render cull: a block is
+    active if any of its slots passes the caller's gate ``slot_mask``
+    (bool[G * block_size]).
 
-
-def _active_block_mask(smap: SurfelMap, T_inv: torch.Tensor, cam: CameraIntrinsics,
-                       params: PipelineParams, block_size: int) -> torch.Tensor:
-    """bool[G] per-block activity: any live surfel in the block passes the
-    conflict in-view gate OR the index-map candidate gate (the timeDelta
-    gate is deliberately NOT applied: stale in-view surfels must still reach
-    the conflict pass)."""
-    G = smap.capacity // block_size
-    _, _, pc_z, u, v = _project(smap.column("px"), smap.column("py"),
-                                smap.column("pz"), T_inv, cam)
-    live = smap.column("conf") > 0.0
-    confl = _conflict_gates(u, v, pc_z, cam, params, params.near_clip, params.far_clip)
-    fa = params.index_factor
-    pi = torch.ceil(u * fa).to(torch.int32) - 1
-    pj = torch.ceil(v * fa).to(torch.int32) - 1
-    idxg = (
-        (pi >= 0) & (pi < cam.width * fa) & (pj >= 0) & (pj < cam.height * fa)
-        & (pc_z > 0.0) & (pc_z < params.far_clip)
-    )
-    act = (live & (confl | idxg)).view(G, block_size)
-    return act.any(dim=1)
+    Returns (blk i64[num_blocks]: active block ids ascending, then filler
+    id G; n_active: the total active block count, 0-d int32).  Overflow
+    rule: if n_active > num_blocks, the num_blocks highest-id (most recently
+    appended) active blocks are kept and the older ones dropped.  Both host
+    loops repair an overflow by reading n_active and running again with a
+    grown budget: the mapper's window verify
+    (``SurfelMapper._repair_overflow``) and :func:`splat.render_view`'s
+    budget loop."""
+    G = slot_mask.shape[0] // block_size
+    blk_act = slot_mask.view(G, block_size).any(dim=1)
+    n_active = blk_act.sum(dtype=torch.int32)
+    ids = torch.where(blk_act, torch.arange(G, device=blk_act.device), -1)
+    ids = torch.sort(ids).values             # inactive (-1) first, actives ascending
+    chosen = ids[max(G - num_blocks, 0):]    # most recent blocks win on overflow
+    blk = torch.sort(torch.where(chosen >= 0, chosen, G)).values
+    return blk, n_active
 
 
 def plan_active_blocks(
@@ -166,26 +162,27 @@ def plan_active_blocks(
     num_blocks: int,
     block_size: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Dense O(capacity) pass -> the <= num_blocks active block ids.
-
-    Returns (blk i64[num_blocks]: active blocks ascending, then G fillers;
-    n_active: the total active block count, 0-d, which the host compares
-    with num_blocks at the next sync).  On overflow the highest-id (most
-    recently appended) blocks are kept, and the host's window verify
-    replays the window with a grown budget."""
-    G = smap.capacity // block_size
-    blk_act = _active_block_mask(smap, T_inv, cam, params, block_size)
-    n_active = blk_act.sum(dtype=torch.int32)
-    ids = torch.where(blk_act, torch.arange(G, device=blk_act.device), -1)
-    ids = torch.sort(ids).values             # inactive (-1) first, actives ascending
-    chosen = ids[max(G - num_blocks, 0):]    # most recent blocks win on overflow
-    blk = torch.sort(torch.where(chosen >= 0, chosen, G)).values
-    return blk, n_active
+    """Dense O(capacity) pass -> the <= num_blocks active block ids, as
+    :func:`choose_blocks` returns them.  A slot is active if it is live and
+    passes the conflict in-view gate OR the index-map candidate gate (the
+    timeDelta gate is deliberately NOT applied: stale in-view surfels must
+    still reach the conflict pass)."""
+    _, _, pc_z, u, v = project_surfels(smap, T_inv, cam)
+    live = smap.column("conf") > 0.0
+    confl = _conflict_gates(u, v, pc_z, cam, params, params.near_clip, params.far_clip)
+    fa = params.index_factor
+    pi = torch.ceil(u * fa).to(torch.int32) - 1
+    pj = torch.ceil(v * fa).to(torch.int32) - 1
+    idxg = (
+        (pi >= 0) & (pi < cam.width * fa) & (pj >= 0) & (pj < cam.height * fa)
+        & (pc_z > 0.0) & (pc_z < params.far_clip)
+    )
+    return choose_blocks(live & (confl | idxg), num_blocks, block_size)
 
 
 def valid_prefix(n_active: torch.Tensor, num_blocks: int, block_size: int) -> torch.Tensor:
     """The valid prefix of the active table that :func:`gather_active`
-    builds from :func:`plan_active_blocks`' ``n_active``: its slots of the
+    builds from :func:`choose_blocks`' ``n_active``: its slots of the
     true active blocks, at most ``num_blocks`` of them (0-d int32, equal to
     ``slot_valid.sum()``)."""
     return torch.clamp(n_active, max=num_blocks) * block_size
@@ -249,10 +246,10 @@ def conflict_active(
     <= 0 this pass."""
     p = params
     H, W = cam.height, cam.width
-    x, y, z, u, v = _project(at.x, at.y, at.z, T_inv, cam)
+    x, y, z, u, v = project_planar(T_inv, at.x, at.y, at.z, cam)
     in_view = _conflict_gates(u, v, z, cam, p, min_depth, max_depth)
 
-    safe_z = torch.where(torch.abs(z) < 1e-12, 1e-12, z)
+    safe_z = safe_divisor(z)
     xl = x / safe_z
     yl = y / safe_z
     lam = ieee_sqrt(xl * xl + yl * yl + 1.0)
@@ -297,7 +294,7 @@ def index_candidates(
     factor = params.index_factor
     icam = cam.scaled(factor)
     H, W = icam.height, icam.width
-    _, _, z, u, v = _project(at.x, at.y, at.z, T_inv, icam)
+    _, _, z, u, v = project_planar(T_inv, at.x, at.y, at.z, icam)
     fresh = (time - at.last_t) <= params.time_delta
     pi = torch.ceil(u).to(torch.int32) - 1
     pj = torch.ceil(v).to(torch.int32) - 1
@@ -469,7 +466,6 @@ def associate_active_plain(
     # int32 bits so the color bits travel untouched
     packed = torch.stack([getattr(at, k).view(torch.int32) for k in _PACKED], dim=1)
 
-    R, t = T_inv[:3, :3], T_inv[:3, 3]
     best = None
     for wi in range(factor):
         for wj in range(factor):
@@ -482,14 +478,8 @@ def associate_active_plain(
             o_cs = rows[:, 4]
             onx, ony, onz, o_rad = (rows[:, j].view(torch.float32) for j in range(5, 9))
             # camera-frame old vertex/normal
-            px = R[0, 0] * ox + R[0, 1] * oy + R[0, 2] * oz + t[0]
-            py = R[1, 0] * ox + R[1, 1] * oy + R[1, 2] * oz + t[1]
-            pz = R[2, 0] * ox + R[2, 1] * oy + R[2, 2] * oz + t[2]
-            cnx = R[0, 0] * onx + R[0, 1] * ony + R[0, 2] * onz
-            cny = R[1, 0] * onx + R[1, 1] * ony + R[1, 2] * onz
-            cnz = R[2, 0] * onx + R[2, 1] * ony + R[2, 2] * onz
-            nlen = torch.clamp(ieee_sqrt(cnx * cnx + cny * cny + cnz * cnz), min=1e-12)
-            cnx, cny, cnz = cnx / nlen, cny / nlen, cnz / nlen
+            px, py, pz = transform_planar(T_inv, ox, oy, oz)
+            cnx, cny, cnz = normalize_planar(*rotate_planar(T_inv, onx, ony, onz))
 
             o_sem = (o_cs >> 24) & 0xFF
             depth_gate = torch.abs(pz * c_lam - c_depth * c_lam) <= fuse_thresh
@@ -547,15 +537,8 @@ def associate_active_plain(
     last_t = torch.full_like(init_t, time)
 
     # world frame
-    Rw, tw = pose[:3, :3], pose[:3, 3]
-    wx = Rw[0, 0] * ox + Rw[0, 1] * oy + Rw[0, 2] * oz + tw[0]
-    wy = Rw[1, 0] * ox + Rw[1, 1] * oy + Rw[1, 2] * oz + tw[1]
-    wz = Rw[2, 0] * ox + Rw[2, 1] * oy + Rw[2, 2] * oz + tw[2]
-    wnx = Rw[0, 0] * nxx + Rw[0, 1] * nyy + Rw[0, 2] * nzz
-    wny = Rw[1, 0] * nxx + Rw[1, 1] * nyy + Rw[1, 2] * nzz
-    wnz = Rw[2, 0] * nxx + Rw[2, 1] * nyy + Rw[2, 2] * nzz
-    wl = torch.clamp(ieee_sqrt(wnx * wnx + wny * wny + wnz * wnz), min=1e-12)
-    wnx, wny, wnz = wnx / wl, wny / wl, wnz / wl
+    wx, wy, wz = transform_planar(pose, ox, oy, oz)
+    wnx, wny, wnz = normalize_planar(*rotate_planar(pose, nxx, nyy, nzz))
 
     mark = torch.where(c_valid, torch.where(matched, best["id"], -1), -10)
 

@@ -26,7 +26,7 @@ import torch
 
 from ..config import CameraIntrinsics, PipelineParams
 from ..surfels import SurfelMap
-from .transforms import normalize_planar, rotate_planar, transform_planar
+from .transforms import normalize_planar, project_planar, rotate_planar, transform_planar
 
 INT32_MAX = 2**31 - 1
 
@@ -68,12 +68,8 @@ def scatter_argmin_image(
 def project_surfels(smap: SurfelMap, T_inv: torch.Tensor, cam: CameraIntrinsics):
     """Camera-frame planar positions and continuous projections of every
     slot: (x, y, z, u, v), each f32[capacity]."""
-    x, y, z = transform_planar(T_inv, smap.column("px"), smap.column("py"),
-                               smap.column("pz"))
-    safe_z = torch.where(torch.abs(z) < 1e-12, 1e-12, z)
-    u = cam.fx * x / safe_z + cam.cx
-    v = cam.fy * y / safe_z + cam.cy
-    return x, y, z, u, v
+    return project_planar(T_inv, smap.column("px"), smap.column("py"), smap.column("pz"),
+                          cam)
 
 
 def build_index_map(

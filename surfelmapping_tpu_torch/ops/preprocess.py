@@ -22,7 +22,7 @@ import math
 import torch
 
 from ..config import CameraIntrinsics, PipelineParams
-from .transforms import device_scalar
+from .transforms import device_scalar, project_planar
 
 
 def _shift(img: torch.Tensor, dy: int, dx: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -169,14 +169,7 @@ def remove_movings(
     # reproject into the last frame
     X = (x - cam.cx) * depth / device_scalar(cam.fx, depth.device)
     Y = (y - cam.cy) * depth / device_scalar(cam.fy, depth.device)
-    R = T_curr_to_last[:3, :3]
-    t = T_curr_to_last[:3, 3]
-    Xl = R[0, 0] * X + R[0, 1] * Y + R[0, 2] * depth + t[0]
-    Yl = R[1, 0] * X + R[1, 1] * Y + R[1, 2] * depth + t[1]
-    Zl = R[2, 0] * X + R[2, 1] * Y + R[2, 2] * depth + t[2]
-    safe_z = torch.where(torch.abs(Zl) < 1e-12, 1e-12, Zl)
-    ul = cam.fx * Xl / safe_z + cam.cx
-    vl = cam.fy * Yl / safe_z + cam.cy
+    _, _, Zl, ul, vl = project_planar(T_curr_to_last, X, Y, depth, cam)
 
     out_of_last = (
         (Zl <= p.near_clip)

@@ -47,12 +47,12 @@ import torch.nn.functional as F
 from ..config import CameraIntrinsics
 from ..surfels import COLUMNS, SurfelMap
 from ..utils import tracing
-from .active import _TABLE_COLS, gather_active, valid_prefix
+from .active import _TABLE_COLS, choose_blocks, gather_active, valid_prefix
 from .colors import decode_color
 from .disc_dilate import disc_dilate, disc_stamps
-from .index_map import INT32_MAX, _depth_key
+from .index_map import INT32_MAX, _depth_key, project_surfels
 from .transforms import (device_scalar, ieee_sqrt, invert_se3, normalize_planar,
-                         rotate_planar, transform_planar)
+                         project_pixels, rotate_planar, safe_divisor, transform_planar)
 from .zbuf import key_id_views, zbuffer_argmin_packed
 
 SQRT2 = 1.41421356237
@@ -110,18 +110,12 @@ def cull_for_render(
     centre, so a block whose surfels all project outside the padded image, or
     outside (1, max_depth), never contributes.  Returns (culled map of
     num_blocks * block_size slots, global_ids i64[A], n_active blocks, 0-d
-    int32).  The culled map holds the chosen blocks in ascending order, valid
-    blocks first; its padding slots have conf 0.  If n_active > num_blocks
-    the lowest-id (oldest) blocks were dropped, as in plan_active_blocks;
-    :func:`render_view` then re-culls with a grown budget."""
+    int32).  The culled map holds the blocks that
+    :func:`active.choose_blocks` keeps, in ascending order, valid blocks
+    first; its padding slots have conf 0.  On overflow :func:`render_view`
+    re-culls with a grown budget."""
     dev = smap.device
-    T_inv = invert_se3(view)
-    G = smap.capacity // block_size
-    px, py, pz = transform_planar(T_inv, smap.column("px"), smap.column("py"),
-                                  smap.column("pz"))
-    safe_z = torch.where(torch.abs(pz) < 1e-12, 1e-12, pz)
-    u = cam.fx * px / safe_z + cam.cx
-    v = cam.fy * py / safe_z + cam.cy
+    _, _, pz, u, v = project_surfels(smap, invert_se3(view), cam)
     vis = (
         (smap.column("conf") > 0.0)
         & (pz > 1.0)
@@ -131,11 +125,7 @@ def cull_for_render(
         & (v >= -margin)
         & (v <= cam.height + margin)
     )
-    blk_act = vis.view(G, block_size).any(dim=1)
-    n_active = blk_act.sum(dtype=torch.int32)
-    ids = torch.sort(torch.where(blk_act, torch.arange(G, device=dev), -1)).values
-    chosen = ids[max(G - num_blocks, 0):]    # keep the tail: the newest blocks
-    blk = torch.sort(torch.where(chosen >= 0, chosen, G)).values
+    blk, n_active = choose_blocks(vis, num_blocks, block_size)
     at = gather_active(smap, blk, block_size)
     cols = {m: getattr(at, t) for t, m in _TABLE_COLS.items()}
     cols["conf"] = torch.where(at.slot_valid, at.conf, 0.0)
@@ -205,9 +195,7 @@ def splat_render(
     inv_y2 = 1.0 / torch.clamp(Yx * Yx + Yy * Yy + Yz * Yz, min=1e-18)
     n_dot_p = pnx * px + pny * py + pnz * pz
 
-    safe_z = torch.where(torch.abs(pz) < 1e-12, 1e-12, pz)
-    uc = cam.fx * px / safe_z + cam.cx
-    vc = cam.fy * py / safe_z + cam.cy
+    uc, vc = project_pixels(px, py, pz, cam)
     pi0 = torch.floor(uc).to(torch.int64)
     pj0 = torch.floor(vc).to(torch.int64)
 
@@ -228,7 +216,7 @@ def splat_render(
         dx = (qpx.to(torch.float32) + 0.5 - cam.cx) / fx
         dy = (qpy.to(torch.float32) + 0.5 - cam.cy) / fy
         denom = c["pnx"] * dx + c["pny"] * dy + c["pnz"]
-        denom = torch.where(torch.abs(denom) < 1e-12, 1e-12, denom)
+        denom = safe_divisor(denom)
         t = c["n_dot_p"] / denom
         qx = t * dx - c["px"]
         qy = t * dy - c["py"]
@@ -435,7 +423,6 @@ def render_view(
     cam: CameraIntrinsics,
     max_depth: float = 200.0,
     footprint: int = 5,
-    small_footprint: int | None = 2,
     block_size: int = 2048,
     start_blocks: int | None = None,
     method: str = "fast",
@@ -480,8 +467,7 @@ def render_view(
     with tracing.span("render.view"):
         while True:
             out, n_active = _cull_and_render(
-                smap, view, cam, budget, block_size, max_depth, footprint,
-                small_footprint, method, classes,
+                smap, view, cam, budget, block_size, max_depth, footprint, method, classes,
             )
             n = tracing.read_back(n_active)
             if n <= budget or budget >= G:
@@ -503,7 +489,6 @@ def _cull_and_render(
     block_size: int,
     max_depth: float,
     footprint: int,
-    small_footprint: int | None,
     method: str,
     classes: tuple[int, ...],
 ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:

@@ -52,6 +52,27 @@ def rotate_planar(T: torch.Tensor, x, y, z):
     )
 
 
+def safe_divisor(d: torch.Tensor) -> torch.Tensor:
+    """``d`` with |d| < 1e-12 replaced by 1e-12, the guard before dividing
+    by a depth or a plane's denominator."""
+    return torch.where(torch.abs(d) < 1e-12, 1e-12, d)
+
+
+def project_pixels(x, y, z, cam):
+    """The pinhole projection of camera-frame planar points: continuous
+    pixel coordinates (u, v) = (fx x / z + cx, fy y / z + cy), with the
+    depth guarded by :func:`safe_divisor`."""
+    safe_z = safe_divisor(z)
+    return cam.fx * x / safe_z + cam.cx, cam.fy * y / safe_z + cam.cy
+
+
+def project_planar(T_inv: torch.Tensor, x, y, z, cam):
+    """Planar points into the camera ``T_inv`` (world-to-camera) and onto
+    its image: (x', y', z', u, v)."""
+    x, y, z = transform_planar(T_inv, x, y, z)
+    return (x, y, z) + project_pixels(x, y, z, cam)
+
+
 def ieee_sqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 square root on every device.  The card's
     ``sqrtf`` rounds correctly, as XLA's does; PyTorch's vectorised float32
