@@ -56,6 +56,12 @@ Phases, each printed as one JSON line:
            renderer's shape (370x1226, classes 1, 2, 3, 5) on
            tools/dilate_cases.py's cases and on that view's own K1 buffers;
            timed there warm and cold beside its bytes bound and the loop
+  cull     the cull's visibility kernel vs its plain form, bit for bit: on
+           tools/cull_cases.py's cases (2^20 slots, blocks of 32, 256 and
+           2048) and at the render cell's shape, the main map's columns
+           padded with dead slots to 2^26 (G = 32,768 blocks of 2048), from
+           each of the render phase's views; timed there warm and cold
+           beside its bytes bound (16 B a slot) and the plain form
   probes   the probe entry points (tools.probe_pallas_zbuf,
            tools.probe_zbuf_variants), which run P1 and P2
   small_icp  tracking on a 128x96 camera, on the card vs on the CPU (plain
@@ -849,9 +855,10 @@ def phase_render(dev, mapper, scene, counters, smi: str) -> tuple:
              max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
              per_view=per_view, card=smi)
     emit("render", **r)
-    if launches["zbuffer_argmin"] < len(views) or launches["disc_dilate"] < len(views):
-        raise AssertionError(f"render: K1 and the dilation launched {launches['zbuffer_argmin']}"
-                             f" and {launches['disc_dilate']} times for {len(views)} views")
+    if min(launches[k] for k in ("zbuffer_argmin", "disc_dilate", "visible_blocks")) < len(views):
+        raise AssertionError(f"render: K1, the dilation and the cull launched "
+                             f"{launches['zbuffer_argmin']}, {launches['disc_dilate']} and "
+                             f"{launches['visible_blocks']} times for {len(views)} views")
     return views, per_view, launches
 
 
@@ -990,6 +997,63 @@ def phase_dilate(dev, mapper, view, n_active: int) -> dict:
              plain_device_launches_per_call=plain_launches,
              bytes=bytes_, bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
     emit("dilate", **r)
+    return r
+
+
+def phase_cull(dev, mapper, views) -> dict:
+    """The cull's visibility kernel against its plain form, bit for bit: on
+    tools/cull_cases.py's cases, and at the render cell's shape (2^26
+    slots, G = 32,768 blocks of 2048: the main map's columns padded with
+    dead slots) from each of ``views``, as render_view culls them; timed
+    there on the first view beside its bytes bound (px, py, pz and conf
+    read once, one byte written per block), the plain form and the device
+    launches of each per call."""
+    import torch.nn.functional as F
+
+    from surfelmapping_tpu_torch.ops.transforms import invert_se3
+    from surfelmapping_tpu_torch.ops.visible_blocks import visible_blocks, visible_blocks_plain
+    from surfelmapping_tpu_torch.tools.cull_cases import CASES, MARGIN, MAX_DEPTH, cull_case
+
+    N, B, margin = 1 << 26, 2048, 7  # render_view's margin: footprint 5 + 2
+    cam, smap = mapper.cam, mapper.smap
+    if smap.capacity > N:
+        raise AssertionError(f"cull: the main map's {smap.capacity} slots exceed {N}")
+    cols = [F.pad(smap.column(k), (0, N - smap.capacity)) for k in ("px", "py", "pz", "conf")]
+    mismatches, calls = 0, 0
+    for case in CASES:
+        for bs in (32, 256, 2048):
+            c = cull_case(case, 1 << 20, bs, seed=SEED, device=dev)
+            T_inv = invert_se3(c.view)
+            got = visible_blocks(*c.columns(), T_inv, c.cam, bs, MAX_DEPTH, MARGIN)
+            want = visible_blocks_plain(*c.columns(), T_inv, c.cam, bs, MAX_DEPTH, MARGIN)
+            mismatches += int((got != want).sum())
+            calls += 1
+    visible = []
+    for v in views:
+        T_inv = invert_se3(torch.as_tensor(v, dtype=torch.float32, device=dev))
+        got = visible_blocks(*cols, T_inv, cam, B, 200.0, margin)
+        want = visible_blocks_plain(*cols, T_inv, cam, B, 200.0, margin)
+        mismatches += int((got != want).sum())
+        visible.append(int(want.sum()))
+    if mismatches:
+        raise AssertionError(f"cull: kernel != plain on {mismatches} blocks")
+    T_inv = invert_se3(torch.as_tensor(views[0], dtype=torch.float32, device=dev))
+    kernel = lambda: visible_blocks(*cols, T_inv, cam, B, 200.0, margin)  # noqa: E731
+    plain = lambda: visible_blocks_plain(*cols, T_inv, cam, B, 200.0, margin)  # noqa: E731
+    launches = device_profile(kernel)[0]
+    if launches != 1:
+        raise AssertionError(f"cull: {launches} device launches per call, not 1")
+    plain_launches, plain_ms_device = device_profile(plain, calls=4)
+    bytes_ = 16.0 * N + N // B
+    ms_device = cuda_ms(kernel, 50, hold=True)
+    bound_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    r = dict(slots=N, blocks=N // B, live=mapper.count, cases=calls, views=len(views),
+             mismatches=mismatches, visible_blocks=visible, device_launches_per_call=launches,
+             ms=cuda_ms(kernel, 50), ms_device=ms_device, ms_device_cold=cuda_ms_cold(kernel, 20),
+             plain_ms=cuda_ms(plain, 10), plain_ms_device=plain_ms_device,
+             plain_device_launches_per_call=plain_launches, bytes=bytes_, bound_ms=bound_ms,
+             bound_by="bytes", bound_share=bound_ms / ms_device)
+    emit("cull", **r)
     return r
 
 
@@ -2156,6 +2220,7 @@ def main() -> int:
     from surfelmapping_tpu_torch.ops import associate_merge as assoc_mod
     from surfelmapping_tpu_torch.ops import disc_dilate as dilate_mod
     from surfelmapping_tpu_torch.ops import preprocess_stencil as k2_mod
+    from surfelmapping_tpu_torch.ops import visible_blocks as cull_mod
     from surfelmapping_tpu_torch.ops import zbuf as zbuf_mod
     from surfelmapping_tpu_torch.ops import zbuf_outres as outres_mod
     from surfelmapping_tpu_torch.ops.cuda_lib import build_all
@@ -2169,7 +2234,7 @@ def main() -> int:
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
     kernels = [zbuf_mod.KERNEL, k2_mod.KERNEL, outres_mod.KERNEL, assoc_mod.KERNEL,
-               dilate_mod.KERNEL]
+               dilate_mod.KERNEL, cull_mod.KERNEL]
     counters = kernels + [outres_mod.P1, outres_mod.P2]
     t0 = time.perf_counter()
     build_all(kernels)
@@ -2197,6 +2262,7 @@ def main() -> int:
     views, per_view, render = phase_render(dev, mapper, scene, counters, smi)
     phase_render_holds(dev, mapper, scene, views[0], per_view[0]["n_active_blocks"], zbuf_mod)
     dilate = phase_dilate(dev, mapper, views[0], per_view[0]["n_active_blocks"])
+    cull = phase_cull(dev, mapper, views)
     phase_small_spade(dev)
     enhance = phase_spade(dev, mapper, views, counters, smi)
     phase_small_spade_train(dev)
@@ -2252,6 +2318,11 @@ def main() -> int:
              ms=dilate["ms"], plain_ms=dilate["plain_ms"], bound_ms=dilate["bound_ms"],
              bound_by="bytes", library_ms=None, ms_device=dilate["ms_device"],
              ms_device_cold=dilate["ms_device_cold"]),
+        dict(name="visible_blocks", route="cuda", source=cull_mod.KERNEL.repo_source,
+             replaces=None, launches=render["visible_blocks"], max_abs_err=0.0,
+             ms=cull["ms"], plain_ms=cull["plain_ms"], bound_ms=cull["bound_ms"],
+             bound_by="bytes", library_ms=None, ms_device=cull["ms_device"],
+             ms_device_cold=cull["ms_device_cold"]),
         outres_row("pallas_zbuf", "tools/probe_pallas_zbuf.py:94", probe, 453_632,
                    probes["pallas_zbuf"], outres_mod.KERNEL.repo_source),
         outres_row("outres", "tools/probe_zbuf_variants.py:66", probe, 4 * 453_620,

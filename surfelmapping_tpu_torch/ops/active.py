@@ -5,7 +5,8 @@ O(map capacity) (counterpart of surfelmapping_tpu/ops/active.py).
      per-surfel view/conflict gates and reduces them to per-*block* activity
      (block = 2048 contiguous slots; surfels append in scan order, so
      frustum residency is efficient at block granularity) through
-     ``choose_blocks``, the block choice the render cull shares.
+     ``choose_blocks``; the render cull shares its second half,
+     ``choose_from_blocks``, which takes a block mask.
   2. ``gather_active``       — gathers the active blocks into a fixed-size
      *active table* of flat 1-D columns.
   3. conflict / index / associate run on the active table with the exact
@@ -130,6 +131,27 @@ def _conflict_gates(u, v, z, cam: CameraIntrinsics, params: PipelineParams,
     )
 
 
+def block_any(slot_mask: torch.Tensor, block_size: int) -> torch.Tensor:
+    """bool[G]: whether any slot of each block passes ``slot_mask``
+    (bool[G * block_size])."""
+    G = slot_mask.shape[0] // block_size
+    return slot_mask.view(G, block_size).any(dim=1)
+
+
+def choose_from_blocks(blk_act: torch.Tensor,
+                       num_blocks: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`choose_blocks` from the block mask ``blk_act`` (bool[G]), as
+    :func:`block_any` reduces a slot mask or the render cull's kernel
+    computes it."""
+    G = blk_act.shape[0]
+    n_active = blk_act.sum(dtype=torch.int32)
+    ids = torch.where(blk_act, torch.arange(G, device=blk_act.device), -1)
+    ids = torch.sort(ids).values             # inactive (-1) first, actives ascending
+    chosen = ids[max(G - num_blocks, 0):]    # most recent blocks win on overflow
+    blk = torch.sort(torch.where(chosen >= 0, chosen, G)).values
+    return blk, n_active
+
+
 def choose_blocks(slot_mask: torch.Tensor, num_blocks: int,
                   block_size: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The block choice of the fusion plan and the render cull: a block is
@@ -144,14 +166,7 @@ def choose_blocks(slot_mask: torch.Tensor, num_blocks: int,
     grown budget: the mapper's window verify
     (``SurfelMapper._repair_overflow``) and :func:`splat.render_view`'s
     budget loop."""
-    G = slot_mask.shape[0] // block_size
-    blk_act = slot_mask.view(G, block_size).any(dim=1)
-    n_active = blk_act.sum(dtype=torch.int32)
-    ids = torch.where(blk_act, torch.arange(G, device=blk_act.device), -1)
-    ids = torch.sort(ids).values             # inactive (-1) first, actives ascending
-    chosen = ids[max(G - num_blocks, 0):]    # most recent blocks win on overflow
-    blk = torch.sort(torch.where(chosen >= 0, chosen, G)).values
-    return blk, n_active
+    return choose_from_blocks(block_any(slot_mask, block_size), num_blocks)
 
 
 def plan_active_blocks(

@@ -27,8 +27,9 @@ Three renderers, as in the JAX package:
     (ops/disc_dilate.py), and on the CPU a plain loop of one
     ``torch.minimum`` per disc stamp (164 for the classes 1, 2, 3, 5).
   * :func:`render_view`: culls the map to the in-frustum blocks first
-    (:func:`cull_for_render`), so a view costs O(in-frustum surfels), and
-    grows the cull budget until nothing is truncated.
+    (:func:`cull_for_render`; on the card its pass over every slot is one
+    CUDA kernel, ops/visible_blocks.py), so a view costs O(in-frustum
+    surfels), and grows the cull budget until nothing is truncated.
 
 Port notes.  JAX's dropped scatters (``mode="drop"``) become writes to a
 spare slot past the end of each buffer.  Divergence from the JAX package, at
@@ -47,12 +48,13 @@ import torch.nn.functional as F
 from ..config import CameraIntrinsics
 from ..surfels import COLUMNS, SurfelMap
 from ..utils import tracing
-from .active import _TABLE_COLS, choose_blocks, gather_active, valid_prefix
+from .active import _TABLE_COLS, choose_from_blocks, gather_active, valid_prefix
 from .colors import decode_color
 from .disc_dilate import disc_dilate, disc_stamps
-from .index_map import INT32_MAX, _depth_key, project_surfels
+from .index_map import INT32_MAX, _depth_key
 from .transforms import (device_scalar, ieee_sqrt, invert_se3, normalize_planar,
                          project_pixels, rotate_planar, safe_divisor, transform_planar)
+from .visible_blocks import visible_blocks, visible_blocks_plain
 from .zbuf import key_id_views, zbuffer_argmin_packed
 
 SQRT2 = 1.41421356237
@@ -111,21 +113,18 @@ def cull_for_render(
     outside (1, max_depth), never contributes.  Returns (culled map of
     num_blocks * block_size slots, global_ids i64[A], n_active blocks, 0-d
     int32).  The culled map holds the blocks that
-    :func:`active.choose_blocks` keeps, in ascending order, valid blocks
+    :func:`active.choose_from_blocks` keeps, in ascending order, valid blocks
     first; its padding slots have conf 0.  On overflow :func:`render_view`
-    re-culls with a grown budget."""
+    re-culls with a grown budget.
+
+    The visible blocks come from one launch of the CUDA kernel
+    (ops/visible_blocks.py) for a map on the card, from the plain form
+    :func:`visible_blocks_plain` for a map on the CPU: the same bits."""
     dev = smap.device
-    _, _, pz, u, v = project_surfels(smap, invert_se3(view), cam)
-    vis = (
-        (smap.column("conf") > 0.0)
-        & (pz > 1.0)
-        & (pz < max_depth)
-        & (u >= -margin)
-        & (u <= cam.width + margin)
-        & (v >= -margin)
-        & (v <= cam.height + margin)
-    )
-    blk, n_active = choose_blocks(vis, num_blocks, block_size)
+    gate = visible_blocks_plain if dev.type == "cpu" else visible_blocks
+    blk_act = gate(*(smap.column(k) for k in ("px", "py", "pz", "conf")), invert_se3(view),
+                   cam, block_size, max_depth, margin)
+    blk, n_active = choose_from_blocks(blk_act, num_blocks)
     at = gather_active(smap, blk, block_size)
     cols = {m: getattr(at, t) for t, m in _TABLE_COLS.items()}
     cols["conf"] = torch.where(at.slot_valid, at.conf, 0.0)

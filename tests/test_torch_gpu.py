@@ -25,6 +25,7 @@ from surfelmapping_tpu_torch.ops import active
 from surfelmapping_tpu_torch.ops import associate_merge as am
 from surfelmapping_tpu_torch.ops import disc_dilate as dd
 from surfelmapping_tpu_torch.ops import preprocess_stencil as k2
+from surfelmapping_tpu_torch.ops import visible_blocks as vb
 from surfelmapping_tpu_torch.ops import zbuf as k1
 from surfelmapping_tpu_torch.ops import zbuf_outres as outres
 from surfelmapping_tpu_torch.ops.index_map import INT32_MAX
@@ -41,6 +42,8 @@ from surfelmapping_tpu_torch.models import checkpoint
 from surfelmapping_tpu_torch.models.pix2pix import (SpadeConfig, SpadeTrainer, init_state_numpy,
                                                     init_variables)
 from surfelmapping_tpu_torch.ops import transforms
+from surfelmapping_tpu_torch.tools.cull_cases import CASES as CULL_CASES
+from surfelmapping_tpu_torch.tools.cull_cases import MARGIN, MAX_DEPTH, cull_case
 from surfelmapping_tpu_torch.tools.compare import (flat, float32_gradients_held,
                                                    float32_steps_held, gap_summary, grad_gaps,
                                                    step_gaps)
@@ -311,6 +314,78 @@ def test_dilate_wrapper_rejects_bad_inputs(cuda):
     assert dd.KERNEL.launches == before
 
 
+@pytest.mark.parametrize("block_size", [32, 256, 2048])
+@pytest.mark.parametrize("case", CULL_CASES)
+def test_cull_kernel_matches_plain(case, block_size, cuda):
+    """The cull's visibility pass on the card: one kernel launch and one
+    ``render.cull_kernel`` count per call, and every block's answer the
+    plain form's, bit for bit, over 2^20 slots with dead, tombstoned and
+    non-finite slots and slots on each gate (tools/cull_cases.py), at three
+    seeds (three random poses in ``random``)."""
+    for seed in range(3):
+        c = cull_case(case, 1 << 20, block_size, seed=seed, device=cuda)
+        T_inv = invert_se3(c.view)
+        before = vb.KERNEL.launches
+        tracing.enable()
+        try:
+            got = vb.visible_blocks(*c.columns(), T_inv, c.cam, block_size, MAX_DEPTH, MARGIN)
+            counted = sum(r.n for r in tracing.records() if r.name == "render.cull_kernel")
+        finally:
+            tracing.enable(False)
+        assert vb.KERNEL.launches == before + 1 and counted == 1
+        want = vb.visible_blocks_plain(*c.columns(), T_inv, c.cam, block_size, MAX_DEPTH,
+                                       MARGIN)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (seed, int((got != want).sum()))
+        assert want.any() and not want.all()
+        assert torch.equal(got[c.gate_blocks], c.gate_visible)
+
+
+def test_cull_kernel_on_misaligned_columns(cuda):
+    """Columns that start off a 16-byte boundary take the kernel's scalar
+    loads: the same answers."""
+    c = cull_case("random", 1 << 16, 256, seed=5, device=cuda)
+    cols = []
+    for t in c.columns():
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        buf[1:] = t
+        cols.append(buf[1:])
+    assert all(t.data_ptr() % 16 for t in cols)
+    T_inv = invert_se3(c.view)
+    got = vb.visible_blocks(*cols, T_inv, c.cam, 256, MAX_DEPTH, MARGIN)
+    want = vb.visible_blocks_plain(*c.columns(), T_inv, c.cam, 256, MAX_DEPTH, MARGIN)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_cull_wrapper_rejects_bad_inputs(cuda):
+    c = cull_case("random", 1 << 12, 32, device=cuda)
+    T_inv = invert_se3(c.view)
+    px, py, pz, conf = c.columns()
+
+    def call(*cols, T=T_inv, B=32):
+        return vb.visible_blocks(*cols, T, c.cam, B, MAX_DEPTH, MARGIN)
+
+    before = vb.KERNEL.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        call(px.cpu(), py, pz, conf)
+    with pytest.raises(ValueError, match="float32"):
+        call(px, py, pz, conf.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(px, py, torch.stack([pz, pz], 1)[:, 0], conf)
+    with pytest.raises(ValueError, match="shape"):
+        call(px, py[:-1], pz, conf)
+    with pytest.raises(ValueError, match="whole blocks"):
+        call(px[:-4], py[:-4], pz[:-4], conf[:-4])
+    with pytest.raises(ValueError, match="block size"):
+        call(px, py, pz, conf, B=100)
+    with pytest.raises(ValueError, match="block size"):
+        call(px, py, pz, conf, B=1536)
+    with pytest.raises(ValueError, match="T_inv"):
+        call(px, py, pz, conf, T=T_inv[:3])
+    assert vb.KERNEL.launches == before
+
+
 def _outres_case(P, seed=0):
     """2^20 candidates over [0, P): signed keys, INT32_MAX keys, a planted
     min-id tie on pixel 13, and (at P = 453,620 and above) empty pixels."""
@@ -432,10 +507,11 @@ def test_render_view_on_the_card_matches_the_cpu(cuda):
         mapper.process_frame(*scene.frame(i))
     smap, pose = mapper.smap, scene.pose(2)
     for method in ("fast", "exact"):
-        n, nd = k1.KERNEL.launches, dd.KERNEL.launches
+        n, nd, nc = k1.KERNEL.launches, dd.KERNEL.launches, vb.KERNEL.launches
         got = render_view(smap, pose, cam, block_size=256, start_blocks=4, method=method,
                           device=cuda)
         assert k1.KERNEL.launches - n == dd.KERNEL.launches - nd == (method == "fast")
+        assert vb.KERNEL.launches - nc == 1 + got["budget_retries"]  # one launch per cull
         want = render_view(smap, pose, cam, block_size=256, start_blocks=4, method=method,
                            device="cpu")
         for key in ("rgb", "semantic", "depth", "id", "n_active_blocks"):

@@ -35,11 +35,15 @@ from surfelmapping_tpu_torch import convert, viz
 from surfelmapping_tpu_torch.config import MapConfig, PipelineParams
 from surfelmapping_tpu_torch.io.synthetic import SyntheticScene, tiny_cam
 from surfelmapping_tpu_torch.metrics import psnr
+from surfelmapping_tpu_torch.ops import active
 from surfelmapping_tpu_torch.ops import disc_dilate as dd
 from surfelmapping_tpu_torch.ops import splat
+from surfelmapping_tpu_torch.ops import visible_blocks as vb
 from surfelmapping_tpu_torch.ops.colors import encode_color
 from surfelmapping_tpu_torch.pipeline import SurfelMapper
+from surfelmapping_tpu_torch.ops.transforms import invert_se3
 from surfelmapping_tpu_torch.surfels import COLUMNS, empty_map
+from surfelmapping_tpu_torch.tools.cull_cases import MARGIN, MAX_DEPTH, cull_case
 from surfelmapping_tpu_torch.tools.dilate_cases import CASES as DILATE_CASES
 from surfelmapping_tpu_torch.tools.dilate_cases import dilate_case
 from surfelmapping_tpu_torch.utils import tracing
@@ -340,3 +344,67 @@ def test_dilate_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         dd.disc_dilate(packed, (1, 2, 3, 5))
     assert dd.KERNEL.launches == before
+
+
+def test_cull_on_the_cpu_runs_the_plain_form(monkeypatch):
+    """CPU tensors never reach the cull kernel's wrapper: no launch, no
+    ``render.cull_kernel`` count, and the blocks chosen (over a budget they
+    overflow) are those of the plain form's block mask."""
+    def kernel(*_):
+        raise AssertionError("the CUDA kernel's wrapper was called for CPU tensors")
+
+    monkeypatch.setattr(splat, "visible_blocks", kernel)
+    case = cull_case("random", 1 << 14, 32, seed=4)
+    smap = case.surfel_map()
+    before = vb.KERNEL.launches
+    tracing.enable()
+    try:
+        _, gids, n_active = splat.cull_for_render(smap, case.view, case.cam, 64, block_size=32,
+                                                  max_depth=MAX_DEPTH, margin=MARGIN)
+        counted = [r for r in tracing.records() if r.name == "render.cull_kernel"]
+    finally:
+        tracing.enable(False)
+    assert vb.KERNEL.launches == before and counted == []
+    blk_act = vb.visible_blocks_plain(*case.columns(), invert_se3(case.view), case.cam, 32,
+                                      MAX_DEPTH, MARGIN)
+    blk, n = active.choose_from_blocks(blk_act, 64)
+    assert int(n_active) == int(n) > 64
+    assert torch.equal(gids, active.gather_active(smap, blk, 32).global_id)
+
+
+@pytest.mark.parametrize("block_size", [32, 2048])
+def test_cull_plain_form_on_the_gates(block_size):
+    """The plain form on slots exactly on each gate of the cull and one ulp
+    to either side (tools/cull_cases.py's ``gates``): z = 1 and max_depth
+    are out, the padded image's edges are in, conf must be above 0, and
+    non-finite coordinates fail."""
+    case = cull_case("gates", 1 << 16, block_size, seed=1)
+    blk_act = vb.visible_blocks_plain(*case.columns(), invert_se3(case.view), case.cam,
+                                      block_size, MAX_DEPTH, MARGIN)
+    assert torch.equal(blk_act[case.gate_blocks], case.gate_visible)
+
+
+@pytest.mark.parametrize("num_blocks", [4, 64])
+def test_choose_blocks_from_a_slot_mask_or_its_block_mask(num_blocks):
+    """choose_blocks' two halves: a slot mask and its block mask choose the
+    same blocks, the newest ones where they overflow the budget."""
+    G, B = 100, 32
+    slot_mask = torch.from_numpy(np.random.default_rng(7).uniform(size=G * B) < 0.01)
+    blk_act = active.block_any(slot_mask, B)
+    assert torch.equal(blk_act, slot_mask.view(G, B).any(1))
+    ids = torch.nonzero(blk_act).flatten()
+    assert 4 < ids.numel() < 64
+    kept = ids[-num_blocks:]
+    want = torch.cat([kept, torch.full((num_blocks - kept.numel(),), G)])  # G: filler
+    for blk, n_active in (active.choose_blocks(slot_mask, num_blocks, B),
+                          active.choose_from_blocks(blk_act, num_blocks)):
+        assert torch.equal(blk, want) and int(n_active) == ids.numel()
+
+
+def test_cull_kernel_wrapper_refuses_cpu_tensors():
+    case = cull_case("random", 1 << 12, 32)
+    before = vb.KERNEL.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        vb.visible_blocks(*case.columns(), invert_se3(case.view), case.cam, 32, MAX_DEPTH,
+                          MARGIN)
+    assert vb.KERNEL.launches == before
